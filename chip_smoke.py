@@ -7,16 +7,22 @@ Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
      and the seconds the hand-written kernels took to build (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the same CUDA tensors
-     at main-path shapes — K1 on the full-size octave-0 Gaussian stack, K2,
-     K3 and K4 on the rows the full-size run produces in octave 0 — with the
-     max abs difference, the tolerance, and median milliseconds of both;
+     at main-path shapes — K7 (the blur) on the full-size initial and
+     level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
+     4096 BRIEF patches, also exactly against the plain version on the CPU
+     (not at the -2+ shapes); K1 on the octave-0 Gaussian stack of the T1
+     grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
+     grid, and K2, K3 and K4 on the rows each of those octaves produces
+     (T1's tiled to 4096) — with the max abs difference, the tolerance,
+     and median milliseconds of both;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
      kernel's launch count in that run (each must be > 0);
   4. the same call without the timer (host wall of five calls) and once
-     under torch.profiler: device busy milliseconds, the trace's span, and
-     the idle share against both (the profiler slows the host, so the
-     share against the unprofiled wall is the one a user sees);
+     under torch.profiler: device busy milliseconds, the trace's span, the
+     idle share against both (the profiler slows the host, so the share
+     against the unprofiled wall is the one a user sees), and the device
+     milliseconds of the costliest kernel names in the trace;
   5. the port on the card against the port on the CPU on
      synthetic_volume(64): equal counts, repeatability 1.0 both ways,
      identical descriptors on >= 99% of rows;
@@ -25,7 +31,17 @@ Phases, each printing one line:
      locations, scales and descriptors (orientations may differ: the
      patch normalization and the structure tensor are reductions that sum
      in another order on the card, and an eigenvector of a nearly
-     degenerate tensor amplifies the last-bit difference).
+     degenerate tensor amplifies the last-bit difference);
+  7. the CLI on the card at full width with each resampling flag and one
+     descriptor flag: -2+ on the 182x218x182 texture (grid 364x436x364),
+     -w and -ws on every other z-plane of it at 1x1x2 mm with a rotated
+     qform and sform (grid 182x218x182), -2- and -bn on it: wall
+     milliseconds of two calls, .key rows, and every kernel's launches
+     (each must be > 0);
+  8. the CLI on the card against the CLI on the CPU for every flag, on the
+     64^3-grid volumes of tests/test_torch_cli_flags.py: equal rows,
+     locations and scales, identical descriptors on >= 99% of rows, and
+     for --debug-pgm the same PGM files byte for byte.
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
 or without the sift3d_torch package beside it, it exits non-zero before
@@ -76,10 +92,13 @@ def median_ms(fn, reps: int = REPS) -> float:
 
 
 def at_least(rows, n: int):
-    """Row tensors tiled up to >= n rows (timing at a realistic row count)."""
+    """Row tensors tiled up to >= n rows (timing at a realistic row count);
+    at least once."""
     import torch
 
-    reps = -(-n // rows[0].shape[0])
+    if rows[0].shape[0] == 0:
+        raise AssertionError("no rows to hold a kernel against its plain version on")
+    reps = max(1, -(-n // rows[0].shape[0]))
     return [torch.cat([t] * reps).contiguous() for t in rows]
 
 
@@ -95,8 +114,8 @@ def max_abs(a, b) -> float:
 def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
-    events, runtime launch calls), or None when the trace holds no device
-    event."""
+    events, runtime launch calls, {kernel name: [events, device ms]} in
+    descending ms), or None when the trace holds no device event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,15 +129,25 @@ def device_profile(fn):
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     span = (max(e.time_range.end for e in dev) - min(e.time_range.start for e in dev)) / 1e3
     launch_names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
-    return busy, span, len(dev), sum(1 for e in events if e.name in launch_names)
+    per_name = {}
+    for e in dev:
+        n_ms = per_name.setdefault(e.name[:100], [0, 0.0])
+        n_ms[0] += 1
+        n_ms[1] += e.time_range.elapsed_us() / 1e3
+    per_name = dict(sorted(per_name.items(), key=lambda kv: -kv[1][1]))
+    return busy, span, len(dev), sum(1 for e in events if e.name in launch_names), per_name
 
 
 def compare_kernels(vol, cfg):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+    """Phase 2: every kernel against its plain version at main-path shapes.
+    Returns the kernel table's rows: each kernel's times at the T1 shapes
+    (the first shape it is checked at) and its largest error over all."""
+    import numpy as np
     import torch
 
-    from sift3d_torch.kernels import extrema_cuda, hist_cuda, patch_cuda
-    from sift3d_torch.kernels.gauss import blur3d
+    from sift3d_torch.core.config import initial_blur_sigma
+    from sift3d_torch.kernels import extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels.resample import double_size, subsample_2x
     from sift3d_torch.pipeline import features, pyramid
 
     results = []
@@ -134,68 +163,228 @@ def compare_kernels(vol, cfg):
             f"kernel {ms!r} ms, plain {plain_ms!r} ms"
         )
         if not err <= tol:
-            raise AssertionError(f"{name} disagrees with its plain version: {err} > {tol}")
+            raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
         results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             max_abs_err=err, ms=ms, plain_ms=plain_ms))
 
-    base = pyramid.initial_blur_core(vol, cfg)
-    inc = cfg.incremental_sigmas()
-    levels = [base]
-    for j in range(1, cfg.blurs_total):
-        levels.append(blur3d(levels[-1], inc[j - 1], cfg.blur_precision))
-    gstack = torch.stack(levels).contiguous()
-    record(
-        "dogs_extrema", "sift3d_torch/csrc/dogs_extrema.cu", "sift3d/kernels/extrema_pallas.py:284",
-        lambda: extrema_cuda.dogs_extrema(gstack), lambda: extrema_cuda.dogs_extrema_plain(gstack),
-        0.0, f"octave-0 gstack {tuple(gstack.shape)} (exact)",
-    )
-    dogs, mask = extrema_cuda.dogs_extrema(gstack)
+    # K7 at the blur shapes of the paths: against cuBLAS (the plain version
+    # on the card, another summation order) within 1e-6 of the peak, and
+    # against the plain version on the CPU (the same fma chain) exactly
+    patches = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((MIN_ROWS, 11, 11, 11)).astype(np.float32)
+    ).to(vol.device)
+    doubled = double_size(vol)
+    level5 = cfg.incremental_sigmas()[-1]
+    blur_cases = [
+        ("initial blur", vol, initial_blur_sigma(cfg), True),
+        ("level-5 blur", vol, level5, True),
+        ("-2+ initial blur", doubled, initial_blur_sigma(cfg, 0.5), False),
+        ("-2+ level-5 blur", doubled, level5, False),
+        ("BRIEF pre-blur", patches, cfg.brief_blur_sigma, True),
+    ]
+    for note, x, sigma, on_cpu in blur_cases:
+        peak = float(x.abs().max())
+        record(
+            "blur3d", "sift3d_torch/csrc/blur3d.cu", "sift3d/kernels/gauss_pallas.py:97",
+            lambda: gauss_cuda.blur3d(x, sigma, cfg.blur_precision),
+            lambda: gauss.blur3d(x, sigma, cfg.blur_precision),
+            1e-6 * peak, f"{note} {tuple(x.shape)}, sigma {sigma!r}",
+        )
+        if on_cpu:
+            got = gauss_cuda.blur3d(x, sigma, cfg.blur_precision).cpu()
+            cpu_err = max_abs(got, gauss.blur3d(x.cpu(), sigma, cfg.blur_precision))
+            print(f"phase2 blur3d: {note} against the plain version on the CPU: max_abs_err {cpu_err!r} (exact)")
+            if cpu_err != 0.0:
+                raise AssertionError(f"K7 differs from the CPU plain blur at the {note}: {cpu_err}")
+    del patches
 
-    # octave-0 rows of the main path
-    lvl, zyx, _ = features.candidate_table(mask)
-    xyz, scale, in_bounds, patches = features.gather_stage(
-        gstack, dogs, lvl, zyx, tuple(cfg.level_sigmas())
-    )
-    lvl32 = lvl.to(torch.int32)
-    rows = at_least([lvl32, xyz, scale], MIN_ROWS)
-    peak = float(gstack.abs().max())
-    record(
-        "sample_identity", "sift3d_torch/csrc/sample_identity.cu", "sift3d/kernels/patch.py:375",
-        lambda: patch_cuda.sample_identity(gstack, *rows),
-        lambda: patch_cuda.sample_identity_plain(gstack, *rows),
-        1e-5 * peak, f"{lvl.shape[0]} octave-0 candidates tiled to {rows[0].shape[0]} rows",
-    )
+    # K1-K4 on the octave-0 Gaussian stack of each resampling path and on
+    # its rows: the T1 grid (rows tiled to a realistic count; these times
+    # go into the table), the -2+ grid (a 1.39 GB stack) and the -2- grid
+    for label, img, scale, tile in (
+        ("T1", vol, 1.0, MIN_ROWS),
+        ("-2+", doubled, 0.5, 0),
+        ("-2-", subsample_2x(vol), 1.0, 0),
+    ):
+        gstack, _, _, _ = pyramid.octave_core(pyramid.initial_blur_core(img, cfg, scale), cfg)
+        gstack = gstack.contiguous()
+        record(
+            "dogs_extrema", "sift3d_torch/csrc/dogs_extrema.cu", "sift3d/kernels/extrema_pallas.py:284",
+            lambda: extrema_cuda.dogs_extrema(gstack), lambda: extrema_cuda.dogs_extrema_plain(gstack),
+            0.0, f"{label} octave-0 gstack {tuple(gstack.shape)} (exact)",
+        )
+        dogs, mask = extrema_cuda.dogs_extrema(gstack)
 
-    pn, _, _, eig_keep = features.eig_stage(patches, cfg)
-    kidx = torch.nonzero(in_bounds & eig_keep)[:, 0]
-    e3, wgt = features.sphere_edges(pn[kidx])
-    band = features.ori_hist_band(cfg, vol.device)
-    hx, hy, hz = features.splat_coords(e3)
-    hrows = at_least([hx, hy, hz, wgt], MIN_ROWS)
-    k1 = cfg.max_primary_orientations
-    record(
-        "hist_topk", "sift3d_torch/csrc/hist_topk.cu", "sift3d/kernels/hist_pallas.py:368",
-        lambda: hist_cuda.hist_topk(*hrows, band, k1),
-        lambda: hist_cuda.hist_topk_plain(*hrows, band, k1),
-        1e-5 * float(wgt.sum(dim=1).max()),
-        f"{kidx.shape[0]} octave-0 primary histograms tiled to {hrows[0].shape[0]} rows, "
-        f"V={hx.shape[1]}, k={k1}",
-    )
+        lvl, zyx, _ = features.candidate_table(mask)
+        xyz, scale_, in_bounds, patches = features.gather_stage(
+            gstack, dogs, lvl, zyx, tuple(cfg.level_sigmas())
+        )
+        lvl32 = lvl.to(torch.int32)
+        rows = at_least([lvl32, xyz, scale_], tile)
+        peak = float(gstack.abs().max())
+        record(
+            "sample_identity", "sift3d_torch/csrc/sample_identity.cu", "sift3d/kernels/patch.py:375",
+            lambda: patch_cuda.sample_identity(gstack, *rows),
+            lambda: patch_cuda.sample_identity_plain(gstack, *rows),
+            1e-5 * peak, f"{label}: {lvl.shape[0]} octave-0 candidates as {rows[0].shape[0]} rows",
+        )
 
-    o = features.canonical_stage(pn[kidx], cfg)
-    row, slot = features.reoriented_slots(o["ori_valid"], cfg)
-    s = cfg.max_primary_orientations * cfg.max_secondary_orientations
-    ori_r = o["ori"].reshape(-1, s, 3, 3)[row, slot]
-    rrows = at_least(
-        [lvl32[kidx][row], xyz[kidx][row], scale[kidx][row], ori_r], MIN_ROWS
-    )
-    record(
-        "sample_rotated", "sift3d_torch/csrc/sample_rotated.cu", "sift3d/kernels/patch.py:889",
-        lambda: patch_cuda.sample_rotated(gstack, *rrows),
-        lambda: patch_cuda.sample_rotated_plain(gstack, *rrows),
-        1e-5 * peak, f"{row.shape[0]} octave-0 reoriented rows tiled to {rrows[0].shape[0]} rows",
-    )
-    return results
+        pn, _, _, eig_keep = features.eig_stage(patches, cfg)
+        kidx = torch.nonzero(in_bounds & eig_keep)[:, 0]
+        e3, wgt = features.sphere_edges(pn[kidx])
+        band = features.ori_hist_band(cfg, vol.device)
+        hx, hy, hz = features.splat_coords(e3)
+        hrows = at_least([hx, hy, hz, wgt], tile)
+        k1 = cfg.max_primary_orientations
+        record(
+            "hist_topk", "sift3d_torch/csrc/hist_topk.cu", "sift3d/kernels/hist_pallas.py:368",
+            lambda: hist_cuda.hist_topk(*hrows, band, k1),
+            lambda: hist_cuda.hist_topk_plain(*hrows, band, k1),
+            1e-5 * float(wgt.sum(dim=1).max()),
+            f"{label}: {kidx.shape[0]} octave-0 primary histograms as {hrows[0].shape[0]} rows, "
+            f"V={hx.shape[1]}, k={k1}",
+        )
+
+        o = features.canonical_stage(pn[kidx], cfg)
+        row, slot = features.reoriented_slots(o["ori_valid"], cfg)
+        s = cfg.max_primary_orientations * cfg.max_secondary_orientations
+        ori_r = o["ori"].reshape(-1, s, 3, 3)[row, slot]
+        rrows = at_least(
+            [lvl32[kidx][row], xyz[kidx][row], scale_[kidx][row], ori_r], tile
+        )
+        record(
+            "sample_rotated", "sift3d_torch/csrc/sample_rotated.cu", "sift3d/kernels/patch.py:889",
+            lambda: patch_cuda.sample_rotated(gstack, *rrows),
+            lambda: patch_cuda.sample_rotated_plain(gstack, *rrows),
+            1e-5 * peak, f"{label}: {row.shape[0]} octave-0 reoriented rows as {rrows[0].shape[0]} rows",
+        )
+        del gstack, dogs, mask, patches
+
+    table = {}
+    for r in results:
+        first = table.setdefault(r["name"], r)
+        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
+    return list(table.values())
+
+
+def rotation(seed: int):
+    """A proper 3x3 rotation from a seed."""
+    import numpy as np
+
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    return q * np.sign(np.linalg.det(q))
+
+
+def write_aniso(path: str, data, seed: int) -> None:
+    """data at 1x1x2 mm voxels with a rotated, offset qform and sform."""
+    import numpy as np
+
+    from sift3d_torch.io import nifti
+
+    def affine(s, offset):
+        m = np.eye(4)
+        m[:3, :3] = rotation(s) * np.array([1.0, 1.0, 2.0])
+        m[:3, 3] = offset
+        return m
+
+    nifti.write(path, np.ascontiguousarray(data), voxel_size=(1.0, 1.0, 2.0),
+                qto_xyz=affine(seed, [-31.5, 20.25, -12.0]), sto_xyz=affine(seed + 1, [10.0, -20.0, 30.0]))
+
+
+def run_cli(argv, workdir: str, device=None):
+    """featextract.main(argv) in workdir (where --debug-pgm writes), its
+    output swallowed; returns (rc, wall ms)."""
+    import torch
+
+    from sift3d_torch.cli import featextract
+
+    here = os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = featextract.main(argv, device=device)
+        torch.cuda.synchronize()
+        return rc, (time.perf_counter() - t0) * 1e3
+    finally:
+        os.chdir(here)
+
+
+def cli_full_width(vol_np, wrappers, tmp: str) -> None:
+    """Phase 7: the CLI on the card with the flags at full width."""
+    from sift3d_torch.io import keyfile, nifti
+
+    t1 = os.path.join(tmp, "t1.nii")
+    nifti.write(t1, vol_np)
+    aniso = os.path.join(tmp, "t1_aniso.nii")
+    write_aniso(aniso, vol_np[::2], seed=4)
+    for flag, path in (("-2+", t1), ("-w", aniso), ("-ws", aniso), ("-2-", t1), ("-bn", t1)):
+        walls = []
+        for _ in range(2):
+            for w in wrappers.values():
+                w.launches = 0
+            rc, ms = run_cli([flag, path, "out.key"], tmp)
+            walls.append(ms)
+            launches = {name: w.launches for name, w in wrappers.items()}
+            if rc != 0:
+                raise AssertionError(f"the CLI failed with {flag}: rc {rc}")
+        with open(os.path.join(tmp, "out.key")) as f:
+            head = [next(f) for _ in range(2)]
+        rows = len(keyfile.read_text(os.path.join(tmp, "out.key"))[0])
+        print(
+            f"phase7 CLI {flag} {os.path.basename(path)} on the card: wall_ms {walls!r}; "
+            f"{rows} .key rows; {head[1].strip()}; launches {json.dumps(launches)}"
+        )
+        if rows == 0 or min(launches.values()) <= 0:
+            raise AssertionError(f"the CLI with {flag} did not run every kernel: {launches}, {rows} rows")
+
+
+def cli_card_vs_cpu(wrappers, tmp: str) -> None:
+    """Phase 8: every flag, the CLI on the card against the CLI on the CPU,
+    on tests/test_torch_cli_flags.py's 64^3-grid volumes."""
+    import numpy as np
+
+    from sift3d_torch.io import keyfile, nifti
+    from sift3d_torch.utils.synthetic import synthetic_volume
+
+    vols = {
+        "cube64": lambda p: nifti.write(p, synthetic_volume(64, seed=7)),
+        "cube32": lambda p: nifti.write(p, np.ascontiguousarray(synthetic_volume(64, seed=3)[::2, ::2, ::2])),
+        "cube128": lambda p: nifti.write(p, synthetic_volume(128, seed=7)),
+        "aniso": lambda p: write_aniso(p, synthetic_volume(64, seed=7)[::2], seed=4),
+    }
+    paths = {}
+    for name, write in vols.items():
+        paths[name] = os.path.join(tmp, f"{name}.nii")
+        write(paths[name])
+    cells = [("-2+", "cube32"), ("-w", "aniso"), ("-ws", "aniso"), ("-2-", "cube128"),
+             ("-b", "cube64"), ("-br", "cube64"), ("-bn", "cube64"), ("--debug-pgm", "cube64")]
+    for flag, name in cells:
+        dirs = {who: tempfile.mkdtemp(prefix=f"{who}_", dir=tmp) for who in ("card", "cpu")}
+        for w in wrappers.values():
+            w.launches = 0
+        rc_card, _ = run_cli([flag, paths[name], "out.key"], dirs["card"])
+        launched = sum(w.launches for w in wrappers.values())
+        rc_cpu, _ = run_cli([flag, paths[name], "out.key"], dirs["cpu"], device="cpu")
+        card, cpu = (keyfile.read_text(os.path.join(dirs[w], "out.key"))[0] for w in ("card", "cpu"))
+        same = len(card) == len(cpu) > 0
+        geo = same and bool((card.xyz == cpu.xyz).all() and (card.scale == cpu.scale).all())
+        desc = float((card.desc == cpu.desc).all(axis=1).mean()) if same else 0.0
+        pgms = sorted(f for f in os.listdir(dirs["cpu"]) if f.endswith(".pgm"))
+        pgm_eq = pgms == sorted(f for f in os.listdir(dirs["card"]) if f.endswith(".pgm")) and all(
+            open(os.path.join(dirs["card"], f), "rb").read() == open(os.path.join(dirs["cpu"], f), "rb").read()
+            for f in pgms
+        )
+        print(
+            f"phase8 CLI {flag} {name}: card rc {rc_card}, {len(card)} rows; cpu rc {rc_cpu}, "
+            f"{len(cpu)} rows; equal locations and scales {geo}; identical descriptors {desc!r}; "
+            f"{len(pgms)} PGM files equal {pgm_eq}"
+        )
+        if not (rc_card == 0 and rc_cpu == 0 and launched > 0 and geo and desc >= 0.99 and pgm_eq):
+            raise AssertionError(f"the CLI with {flag} on the card disagrees with the CLI on the CPU")
+        if flag == "--debug-pgm" and len(pgms) < 2:
+            raise AssertionError("--debug-pgm wrote no PGM files")
 
 
 def main() -> int:
@@ -210,7 +399,7 @@ def main() -> int:
     from sift3d_torch.core.config import DEFAULT_CONFIG as cfg
     from sift3d_torch.core.device import resolve_device
     from sift3d_torch.io import keyfile, nifti
-    from sift3d_torch.kernels import cuda_lib, extrema_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import (
         repeatability, synthetic_blob_texture, synthetic_volume,
@@ -232,6 +421,7 @@ def main() -> int:
     kernels = compare_kernels(vol, cfg)
 
     wrappers = {
+        "blur3d": gauss_cuda.blur3d,
         "dogs_extrema": extrema_cuda.dogs_extrema,
         "sample_identity": patch_cuda.sample_identity,
         "hist_topk": hist_cuda.hist_topk,
@@ -274,11 +464,18 @@ def main() -> int:
     if prof is None:
         print(f"phase4 wall_ms {walls!r} (median {wall!r}); device time not measured (no device events)")
     else:
-        busy, span, n_dev, n_launch = prof
+        busy, span, n_dev, n_launch, per_name = prof
+        ours = {}
+        for name in wrappers:
+            hits = [v for k, v in per_name.items() if f"::{name}_kernel" in k]
+            ours[name] = [sum(n for n, _ in hits), round(sum(ms for _, ms in hits), 4)]
+        top = {name: [n, round(ms, 4)] for name, (n, ms) in list(per_name.items())[:10]}
         print(
             f"phase4 wall_ms {walls!r} (median {wall!r}); profiled: device busy {busy!r} ms in "
             f"{n_dev} device events, {n_launch} launch calls, trace span {span!r} ms; idle share "
-            f"{1 - busy / wall!r} of the unprofiled median wall, {1 - busy / span!r} of the span"
+            f"{1 - busy / wall!r} of the unprofiled median wall, {1 - busy / span!r} of the span; "
+            f"device [events, ms] of the port's kernels {json.dumps(ours)}, of the "
+            f"{len(top)} costliest of {len(per_name)} kernel names {json.dumps(top)}"
         )
 
     small = synthetic_volume(64)
@@ -322,6 +519,11 @@ def main() -> int:
     )
     if not (rc_card == 0 and rc_cpu == 0 and min(cli_launches.values()) > 0 and geo_eq and desc_eq):
         raise AssertionError("the CLI did not run the kernels on the card, or disagrees with the CPU")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_full_width(vol_np, wrappers, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_card_vs_cpu(wrappers, tmp)
 
     table = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces", "launches",

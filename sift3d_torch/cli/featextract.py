@@ -6,30 +6,40 @@ Usage:
 
       <input image>:  nifti (.nii, .nii.gz, .hdr)
       <output features>: .key text file
-      -d<N>  : CUDA device index (default 0); the port runs on the card,
-               through its hand-written kernels, and needs one
+      -w   : world coordinates (qto_xyz; -ws uses sto_xyz), implies
+             isotropic resampling
+      -2+  : double input image size       -2- : halve input image size
+      -b   : BRIEF descriptor   -br : RRIEF   -bn : NRRIEF
+      -d<N>: CUDA device index (default 0); the port runs on the card,
+             through its hand-written kernels, and needs one
+      --debug-pgm : write the mid XY slice of the input (image.pgm) and of
+             each octave's first blur level (image_o<N>.pgm) to the
+             current directory
       --time : print per-stage timing summary
 
-The default-flag path of ``sift3d.cli.featextract`` (voxel coordinates,
-GoH descriptors, reoriented copies), with the same comment headers, so the
-two .key files can be compared line by line (they differ at most in the
-last printed digit of orientations and eigenvalues: ROADMAP.md, Queue 3).
-The other flags of the JAX CLI
-(-w/-ws, -2+/-2-, -b/-br/-bn, --spatial) are not ported yet; see ROADMAP.md.
+Every flag of ``sift3d.cli.featextract`` but --spatial (Z-sharding over
+several devices, ROADMAP.md), step for step and with the same comment
+headers, so the two .key files can be compared line by line (they differ
+at most in the last printed digit of orientations and eigenvalues:
+ROADMAP.md, Queue 3).
 """
 
 from __future__ import annotations
 
 import sys
 
+import numpy as np
 import torch
 
 from sift3d_torch.core.config import DEFAULT_CONFIG
+from sift3d_torch.core.device import resolve_device
 from sift3d_torch.io import keyfile, nifti
+from sift3d_torch.kernels.resample import double_size, isotropic_resample, subsample_2x
 from sift3d_torch.pipeline.extract import extract_features
+from sift3d_torch.utils.pgm import write_volume_slice
 from sift3d_torch.utils.timing import StageTimer
 
-NOT_PORTED = ("-w", "-W", "-ws", "-WS", "-wS", "-Ws", "-2+", "-2-", "-b", "-br", "-bn", "-s")
+DESCRIPTOR_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 
 
 def print_options():
@@ -43,20 +53,36 @@ def main(argv=None, device=None) -> int:
     that hold the port against another implementation."""
     argv = list(sys.argv[1:] if argv is None else argv)
     index = 0
+    double_image = 0
+    world_coords = 0
+    isotropic = False
+    descriptor = "goh"
     show_time = False
+    debug_pgm = False
     i = 0
     while i < len(argv) and argv[i].startswith("-"):
         a = argv[i]
-        if a in NOT_PORTED or a.startswith("--spatial"):
+        if a.startswith("--spatial"):
             print(
-                f"Error: {a} is not ported to the PyTorch package yet (ROADMAP.md, "
-                "Queue 1); use python -m sift3d.cli.featextract for it."
+                f"Error: {a} (Z-sharding over several devices) is not ported to the "
+                "PyTorch package yet (ROADMAP.md, Queue 1); use python -m "
+                "sift3d.cli.featextract for it."
             )
             return -1
-        if a.startswith("-d") and a[2:].isdigit():
+        if a.startswith("-2"):
+            double_image = -1 if a[2:3] == "-" else 1
+        elif a.startswith("-d") and a[2:].isdigit():
             index = int(a[2:])
+        elif a in ("-w", "-W"):
+            world_coords, isotropic = 1, True
+        elif a in ("-ws", "-WS", "-wS", "-Ws"):
+            world_coords, isotropic = 2, True
+        elif a in DESCRIPTOR_FLAGS:
+            descriptor = DESCRIPTOR_FLAGS[a]
         elif a == "--time":
             show_time = True
+        elif a == "--debug-pgm":
+            debug_pgm = True
         else:
             print(f"Error: unknown command line argument: {a}")
             print_options()
@@ -80,22 +106,71 @@ def main(argv=None, device=None) -> int:
     except (OSError, ValueError) as e:
         print(f"Error: could not read input file: {in_path} ({e})")
         return -1
-    data = vol.data
+    dev = resolve_device(device)
+    # a copy: the NIfTI reader's arrays are read-only
+    data = torch.from_numpy(np.array(vol.data, np.float32)).to(dev)
     dx, dy, dz = vol.voxel_size
+    world = vol.world_matrix(use_sform=(world_coords == 2)).copy()
+
+    if isotropic and (dx != dy or dy != dz or dx != dz):
+        data, dmin = isotropic_resample(data, vol.voxel_size)
+        # rescale the direction cosines per column (featExtract.cpp:162-176)
+        factors = np.array([dmin / dx, dmin / dy, dmin / dz])
+        world[:3, :3] = world[:3, :3] * factors[None, :]
+        dx = dy = dz = dmin
+
+    cfg = DEFAULT_CONFIG
+    initial_scale = 1.0
+    if double_image == 1:
+        data = double_size(data)
+        initial_scale = 0.5
+    elif double_image == -1:
+        data = subsample_2x(data)
+
     if data.shape[0] <= 1:
         print(f"Could not read volume: {in_path}")
         return -1
     print(f"Input image: i={data.shape[2]} j={data.shape[1]} k={data.shape[0]}")
 
+    on_gstack = None
+    if debug_pgm:
+        # the input's mid XY slice, then each octave's first blur level (the
+        # reference writes octave 0's to 'image.pgm', MultiScale.cpp:374-384)
+        write_volume_slice("image.pgm", data)
+
+        def on_gstack(octave, gstack):
+            write_volume_slice(f"image_o{octave}.pgm", gstack[1])
+
     timer = StageTimer(enabled=show_time)
-    feats = extract_features(data, DEFAULT_CONFIG, device=device, timer=timer)
+    feats = extract_features(
+        data, cfg, device=dev, timer=timer,
+        initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
+    )
+
+    # size factor for -2 options (featExtract.cpp:422-427, 502-505)
+    size_factor = {1: 0.5, -1: 2.0}.get(double_image, 1.0)
+    feats.xyz *= size_factor
+    feats.scale *= size_factor
+
+    if world_coords:
+        # coordinates, scale and orientation to world space (featExtract.cpp:507-538)
+        feats = feats.similarity_transform(world)
 
     comments = [
         "Extraction Voxel Resolution (ijk) : %d %d %d" % (data.shape[2], data.shape[1], data.shape[0]),
         "Extraction Voxel Size (mm)  (ijk) : %f %f %f" % (dx, dy, dz),
-        "Feature Coordinate Space: voxels: 1.0 0.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 0.0 1.0",
     ]
-    n = keyfile.write_text(feats, out_path, eig_threshold=DEFAULT_CONFIG.eig_threshold, comments=comments)
+    if world_coords:
+        space = "qto_xyz" if world_coords == 1 else "sto_xyz"
+        comments.append(
+            "Feature Coordinate Space: millimeters (%s) : %f %f %f %f %f %f %f %f %f %f %f %f 0.0 0.0 0.0 1.0"
+            % (space, *world[0, :], *world[1, :], *world[2, :])
+        )
+    else:
+        comments.append(
+            "Feature Coordinate Space: voxels: 1.0 0.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 0.0 1.0 0.0 0.0 0.0 0.0 1.0"
+        )
+    n = keyfile.write_text(feats, out_path, eig_threshold=cfg.eig_threshold, comments=comments)
     if show_time:
         print(timer.summary())
     print(f"\nFeatures: {n}")

@@ -56,6 +56,19 @@ class NiftiImage:
         z, y, x = self.data.shape[-3:]
         return (x, y, z)
 
+    def world_matrix(self, use_sform: bool = False) -> np.ndarray:
+        """Voxel-to-world 4x4 (qform by default; sform when requested and
+        valid), as ``sift3d.core.volume.Volume.world_matrix``: `-ws`
+        prefers sto_xyz when sform_code > 0, else falls back to qto_xyz
+        (featExtract.cpp:447-458)."""
+        if use_sform and self.sform_code > 0 and self.sto_xyz is not None:
+            return np.asarray(self.sto_xyz, dtype=np.float64)
+        if self.qto_xyz is not None:
+            return np.asarray(self.qto_xyz, dtype=np.float64)
+        m = np.eye(4, dtype=np.float64)
+        m[0, 0], m[1, 1], m[2, 2] = self.voxel_size
+        return m
+
 
 def _quatern_to_mat44(b, c, d, qx, qy, qz, dx, dy, dz, qfac) -> np.ndarray:
     """nifti_quatern_to_mat44 (nifti1_io.c): quaternion + scalings -> 4x4."""

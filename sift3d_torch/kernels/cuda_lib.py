@@ -50,6 +50,8 @@ SIGNATURES = {
     "sift3d_hist_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
     # gstack, lvl, centers, scales, oris [R,3,3], out [R,1331], R, L, Z, Y, X
     "sift3d_sample_rotated": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # in [B,Z,Y,X] f32, out [B,Z,Y,X] f32, taps [2r+1], r, B, Z, Y, X
+    "sift3d_blur3d": (_P, _P, _P, _I, _I, _I, _I, _I),
 }
 
 

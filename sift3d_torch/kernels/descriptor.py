@@ -1,6 +1,6 @@
-"""GoH-64 descriptor with rank normalization.
+"""GoH-64 descriptor with rank normalization, and the BRIEF family.
 
-PyTorch port of ``sift3d.kernels.descriptor`` (descriptor.py:32-117).
+PyTorch port of ``sift3d.kernels.descriptor`` (descriptor.py:32-209).
 Reference equivalents:
 - msResampleFeaturesGradientOrientationHistogram (MultiScale.cpp:583-710):
   8 orientation bins (cube-corner directions) x 2x2x2 spatial bins = 64-d,
@@ -8,6 +8,9 @@ Reference equivalents:
   (msNormalizeDataPositive, MultiScale.cpp:1580-1611).
 - Feature3DInfo::NormalizeDataRankedPCs (MultiScale.cpp:207-233): values
   replaced by their ascending sort rank (ties broken by index).
+- msResampleFeaturesBRIEF (MultiScale.cpp:989-1049): BRIEF / RRIEF /
+  NRRIEF pair differences on the sigma-0.95 blurred patch, with the frozen
+  pair tables of msGenerateBRIEFindex (MultiScale.cpp:743-956).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from sift3d_torch.core.numerics import sqrt
+from sift3d_torch.kernels import gauss_cuda
 from sift3d_torch.kernels.patch import PATCH_DIM, patch_gradients
 
 # 8 orientation bin directions: cube corners (MultiScale.cpp:616-626)
@@ -100,3 +104,80 @@ def rank_normalize(desc: torch.Tensor) -> torch.Tensor:
     n = desc.shape[-1]
     ranks = torch.arange(n, dtype=desc.dtype, device=desc.device).expand_as(desc)
     return torch.zeros_like(desc).scatter(-1, order, ranks)
+
+
+# ---------------------------------------------------------------------------
+# BRIEF / RRIEF / NRRIEF
+# ---------------------------------------------------------------------------
+
+# Frozen pseudo-random pair tables (data constants reproduced from
+# msGenerateBRIEFindex, MultiScale.cpp:743-956, for bit-parity with the
+# reference; the live RNG code there is commented out with seeds 5/8).
+# Layout: 64 triplets (x, y, z) per endpoint.
+_BRIEF_TABLES = {
+    0: (
+        [4,6,2,2,2,2,4,3,8,7,3,2,2,6,3,3,5,8,6,7,5,5,7,4,6,6,3,2,6,8,2,7,2,6,6,7,7,8,8,6,3,2,4,5,5,4,7,7,5,7,4,3,7,2,2,3,8,3,2,4,3,5,4,3,4,2,6,6,5,8,2,3,3,4,7,8,3,2,2,7,3,5,4,5,6,5,6,7,6,8,4,8,4,5,8,5,6,3,6,5,3,7,6,3,8,6,8,2,8,2,8,3,2,3,3,5,3,7,8,3,4,4,5,5,3,2,8,7,6,5,3,6,4,2,4,2,7,5,4,6,7,3,5,4,3,5,2,6,3,2,8,4,4,6,5,4,8,7,2,8,6,5,2,7,5,7,4,2,5,7,4,7,7,4,8,8,2,8,3,4,6,7,5,8,2,4,6,3,8,6,5,4],
+        [5,2,3,7,5,8,7,5,6,5,6,3,2,7,4,6,2,8,4,6,6,3,5,7,7,4,3,3,4,8,8,5,3,4,2,6,8,3,3,3,7,8,6,2,6,6,2,5,2,7,8,6,2,7,4,3,8,4,7,7,3,3,8,2,5,2,7,2,4,5,8,3,5,6,3,2,8,2,4,6,7,3,2,4,4,7,4,4,8,8,5,8,2,8,8,5,3,3,5,6,7,4,8,4,8,7,4,7,3,4,6,7,5,2,8,7,6,5,8,7,8,7,8,6,8,4,8,4,5,7,4,8,2,3,8,2,5,4,3,2,8,8,7,3,5,7,4,5,4,6,6,7,7,8,6,8,4,2,6,7,5,4,2,8,8,6,5,8,4,4,4,6,6,4,5,3,4,5,4,4,8,4,3,4,6,5,8,7,7,2,2,3],
+    ),
+    1: (
+        [5,4,4,6,5,5,3,8,5,5,6,3,5,6,5,6,3,4,3,4,5,4,5,4,5,5,5,5,6,5,5,5,5,3,5,7,3,5,5,5,6,6,5,3,6,5,5,5,4,5,5,5,3,5,4,4,6,6,4,3,5,3,3,3,6,6,4,4,5,5,5,5,4,4,5,6,5,4,4,4,4,3,4,4,6,3,2,5,4,4,5,4,3,6,7,5,3,5,4,5,5,4,5,6,3,5,6,5,5,6,5,5,7,6,4,4,6,6,4,4,4,5,2,5,4,5,2,5,5,5,2,6,3,3,5,4,7,5,4,5,3,5,4,6,4,4,3,4,5,4,6,3,4,5,5,6,4,3,4,6,4,4,6,5,4,4,5,5,5,5,4,4,3,7,7,3,6,6,5,7,4,6,2,4,2,5,6,3,3,6,5,6],
+        [4,4,2,4,4,4,5,6,4,5,5,5,4,6,6,4,4,5,4,5,5,4,6,4,4,2,7,7,5,3,5,4,5,4,5,4,2,3,5,4,5,5,4,5,5,4,6,5,4,4,6,4,5,5,3,6,4,6,4,4,7,4,5,4,4,2,5,4,6,4,3,5,3,4,7,5,2,4,4,6,3,4,6,5,6,4,4,5,5,3,4,5,4,5,5,5,4,5,5,4,5,4,5,3,4,6,4,5,3,6,5,4,4,6,4,7,4,4,3,6,4,3,7,4,5,6,2,3,6,5,5,5,5,4,4,5,3,4,6,4,5,5,4,2,4,4,4,6,4,6,6,3,6,5,5,3,3,5,5,3,5,3,4,2,3,6,2,4,5,4,7,3,4,3,3,5,4,3,5,4,4,4,6,3,5,4,3,5,7,5,4,4],
+    ),
+    2: (
+        [5,4,4,4,4,2,6,5,5,4,4,4,3,8,5,5,6,3,5,5,5,5,6,5,4,6,6,6,3,4,4,4,5,3,4,5,4,5,5,4,2,7,7,5,3,5,4,5,3,5,7,3,5,5,2,3,5,5,6,6,4,6,5,4,4,6,5,3,5,6,4,3,6,4,4,5,3,3,3,6,6,5,2,4,4,6,3,6,3,2,3,5,4,5,3,4,3,6,5,4,3,6,4,5,2,4,3,7,2,3,6,5,2,6,3,3,5,6,3,6,3,5,3,6,5,7,4,2,5,5,5,2,5,7,4,2,5,3,4,3,3,7,4,4,7,6,4,4,2,8,7,6,5,4,7,3,6,6,5,2,4,5,3,2,5,5,1,6,3,6,3,6,2,5,4,4,7,2,6,3,2,2,4,3,3,2,3,4,2,5,6,7],
+        [6,5,3,4,5,3,7,4,6,4,3,2,4,7,5,3,5,1,5,4,7,6,8,4,4,5,6,5,2,5,4,6,4,0,4,3,3,4,4,2,1,7,8,6,4,4,1,6,1,3,7,2,3,3,1,3,6,1,6,6,4,7,6,4,3,5,4,2,3,6,4,5,6,3,3,5,1,3,1,6,7,4,1,4,3,5,2,4,2,1,2,5,4,5,2,3,3,3,3,4,2,6,3,4,3,3,3,6,1,2,5,4,2,4,1,4,6,7,3,6,2,4,3,6,5,6,4,0,6,6,5,1,4,7,2,1,5,3,4,2,2,7,3,3,6,4,2,4,1,9,7,7,5,2,7,1,7,5,5,1,5,4,1,3,3,4,0,5,1,6,3,5,3,2,3,3,7,2,5,1,1,0,4,1,3,1,0,3,1,6,5,9],
+    ),
+    3: (
+        None,  # first endpoint is the patch center (5,5,5)
+        [6,4,6,3,4,6,5,4,6,4,6,4,6,3,4,4,6,2,5,5,4,5,3,4,6,5,4,4,5,4,4,4,4,5,4,5,3,5,4,3,3,4,6,7,5,6,4,7,4,4,6,5,4,4,4,3,4,5,6,4,5,3,7,5,4,3,2,5,5,3,4,4,4,5,6,5,6,3,4,3,2,4,6,3,3,4,3,4,4,3,5,3,5,4,4,5,1,6,5,4,5,5,5,6,6,5,4,2,5,5,6,5,7,4,3,5,3,4,3,7,3,7,5,3,6,4,6,4,4,6,3,5,6,4,5,5,7,5,2,4,3,7,6,5,7,4,6,6,5,5,4,5,3,4,3,5,5,5,3,5,3,3,4,6,5,6,6,6,6,6,5,4,2,4,6,6,3,3,5,5,7,3,4,4,4,2,4,6,6,5,6,5],
+    ),
+    4: (
+        None,
+        [5,5,4,5,5,6,2,8,5,6,2,4,5,6,9,2,5,5,6,5,8,5,4,1,4,5,9,2,5,3,4,4,5,5,3,2,7,5,3,5,7,4,5,5,2,6,6,2,4,5,4,7,7,6,6,1,5,5,7,3,5,5,3,4,5,7,6,4,8,8,8,4,6,4,7,4,7,5,5,6,3,5,7,5,4,3,7,4,7,2,5,4,2,5,6,5,5,5,1,5,4,6,6,5,4,3,5,6,6,5,7,2,4,5,5,4,3,7,3,4,5,5,9,1,5,4,8,5,7,2,5,2,5,5,7,4,5,2,5,7,8,3,3,2,4,6,5,5,3,5,7,6,5,5,4,7,6,3,5,5,5,8,9,4,5,7,5,5,6,7,3,4,5,5,3,5,8,6,5,3,6,1,3,3,4,3,5,6,4,3,4,5],
+    ),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pair_table(method: int = 2):
+    """(p, q) int32 arrays [64, 3] of (x, y, z) voxel pairs, read-only.
+
+    method 0: uniform; 1: iso-Gaussian; 2: Gaussian pair-centered (default);
+    3: center-to-Gaussian (p is the patch centre); 4: polar grid.
+    """
+    t0, t1 = _BRIEF_TABLES[method]
+    q = np.asarray(t1, dtype=np.int32).reshape(-1, 3)
+    if t0 is None:
+        p = np.full(q.shape, PATCH_DIM // 2, dtype=np.int32)
+    else:
+        p = np.asarray(t0, dtype=np.int32).reshape(-1, 3)
+    p.setflags(write=False)
+    q.setflags(write=False)
+    return p, q
+
+
+def brief_descriptor(
+    patches_norm: torch.Tensor, variant: str = "rrief", method: int = 2, blur_sigma: float = 0.95,
+) -> torch.Tensor:
+    """BRIEF family descriptor of normalized patches [C, 11, 11, 11];
+    returns [C, 64] f32.
+
+    The patches are blurred with sigma 0.95 (truncation 0.01, zero
+    borders; K7 on the card), then for each frozen pair (p, q): d = I(p) -
+    I(q); BRIEF stores (d < 0), RRIEF the raw difference, NRRIEF d /
+    max(int(|p - q|), 1) (the distance truncated to an integer, and
+    guarded for identical points).
+    """
+    if variant not in ("brief", "rrief", "nrrief"):
+        raise ValueError(f"unknown BRIEF variant: {variant}")
+    p, q = brief_pair_table(method)
+    blurred = gauss_cuda.blur3d(patches_norm.contiguous(), blur_sigma, 0.01)
+    # table entries are (x, y, z); patches are [C, z, y, x]
+    pt, qt = (torch.from_numpy(t.astype(np.int64)).to(blurred.device) for t in (p, q))
+    d = blurred[:, pt[:, 2], pt[:, 1], pt[:, 0]] - blurred[:, qt[:, 2], qt[:, 1], qt[:, 0]]
+    if variant == "brief":
+        return (d < 0).to(patches_norm.dtype)
+    if variant == "rrief":
+        return d
+    dist = np.maximum(np.sqrt(((p - q) ** 2).sum(axis=1)).astype(np.int32), 1)
+    return d / torch.from_numpy(dist.astype(np.float32)).to(d.device)

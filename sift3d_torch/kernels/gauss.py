@@ -1,4 +1,4 @@
-"""Separable 3D Gaussian blur as banded f32 matmuls.
+"""Separable 3D Gaussian blur as banded f32 matmuls: the plain version of K7.
 
 The reference implements the blur as three 1D FIR passes with zero-padded
 borders (src_common/GaussBlur3D.cpp:329-479 `blur_3d_simpleborders`), with
@@ -12,7 +12,17 @@ matrix having no taps outside the volume. Here each pass is one
 ``torch.matmul`` in full f32 — TF32 is switched off where the port creates
 its device (``sift3d_torch.core.device``), because TF32 in the blur flips
 tie-margin extrema. It is never routed through a cuDNN convolution, whose
-f32 default is TF32. A hand-written fused blur kernel is still to come.
+f32 default is TF32.
+
+On the CPU this plain version equals, bit for bit, one sequential f32
+fused multiply-add chain per output: output o of an axis pass is
+``acc = fma(taps[i - o + r], v[i], acc)`` over the in-range inputs i in
+ascending order, starting from acc = 0 (tests/test_torch_blur.py holds it
+to a numpy replica of that chain at every pyramid sigma and at the BRIEF
+pre-blur's). The hand-written CUDA kernel K7 (``gauss_cuda.blur3d``,
+``csrc/blur3d.cu``) computes exactly that chain, so on the card it equals
+this plain version run on the CPU. cuBLAS on the card sums in its own
+order and agrees only to about an ulp.
 """
 
 from __future__ import annotations
@@ -113,7 +123,9 @@ def blur_axis(vol: torch.Tensor, axis: int, sigma: float, min_value: float) -> t
 
 
 def blur3d(vol: torch.Tensor, sigma: float, min_value: float = 0.01) -> torch.Tensor:
-    """Separable 3D Gaussian blur with zero-padded borders, f32.
+    """Separable 3D Gaussian blur with zero-padded borders, f32, of a
+    [Z, Y, X] volume or a [B, Z, Y, X] batch (the BRIEF pre-blur of 11^3
+    patches, the JAX package's ``gauss.blur3d_batched``).
 
     Equivalent of gb3d_blur3d (GaussBlur3D.cpp:1262-1285): x pass, then y,
     then z, as the JAX package's ``gauss.blur3d``.
@@ -124,3 +136,4 @@ def blur3d(vol: torch.Tensor, sigma: float, min_value: float = 0.01) -> torch.Te
     out = blur_axis(out, 1, sigma, min_value)
     out = blur_axis(out, 0, sigma, min_value)
     return out
+

@@ -17,7 +17,7 @@ TPU runtime).
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,10 +31,13 @@ from sift3d_torch.utils.timing import StageTimer
 
 def extract_octaves(
     img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    *, initial_image_scale: float = 1.0, descriptor: str = "goh",
+    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> Iterator[Tuple[int, dict]]:
     """Yield (octave, rows) for every octave that emits features; rows is
     ``features.emit_octave``'s dict (octave-local geometry, rows sorted in
-    reference push order)."""
+    reference push order). initial_image_scale, descriptor and on_gstack
+    as in :func:`extract_features`."""
     dev = resolve_device(device, like=img)
     timer = timer or StageTimer(enabled=False)
     sigmas = tuple(cfg.level_sigmas())
@@ -45,11 +48,13 @@ def extract_octaves(
     if vol.ndim != 3:
         raise ValueError(f"expected a [Z, Y, X] volume, got shape {tuple(vol.shape)}")
     with timer.stage("initial_blur"):
-        base = pyramid.initial_blur_core(vol, cfg)
+        base = pyramid.initial_blur_core(vol, cfg, initial_image_scale)
     for octave in range(pyramid.num_octaves(tuple(vol.shape), cfg)):
         with timer.stage("pyramid"):
             gstack, dogs, mask, base = pyramid.octave_core(base, cfg)
-        rows = features.emit_octave(gstack, dogs, mask, cfg, sigmas, timer)
+        if on_gstack is not None:
+            on_gstack(octave, gstack)
+        rows = features.emit_octave(gstack, dogs, mask, cfg, sigmas, timer, descriptor)
         if rows is None:
             continue
         order = torch.argsort(rows["key"], stable=True)
@@ -58,17 +63,27 @@ def extract_octaves(
 
 def extract_features(
     img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    *, initial_image_scale: float = 1.0, descriptor: str = "goh",
+    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> FeatureSet:
-    """Extract 3D SIFT features (GoH descriptors, reoriented copies) from a
+    """Extract 3D SIFT features (reoriented copies included) from a
     [Z, Y, X] volume (numpy array or tensor).
 
     device: where to run (a CUDA device runs the hand-written kernels, the
     CPU their plain versions); None means the tensor's own device, or the
-    CPU for a numpy array. Returns features in voxel coordinates of the
-    input volume, ordered as the JAX package orders them.
+    CPU for a numpy array. initial_image_scale: 0.5 for an image the CLI
+    doubled (-2+), whose initial blur then assumes sigma_init / 0.5.
+    descriptor: "goh" (default), "brief", "rrief" or "nrrief". on_gstack:
+    called as on_gstack(octave, gstack) with every octave's [6, Z, Y, X]
+    Gaussian stack before its features (the CLI's --debug-pgm). Returns
+    features in voxel coordinates of the input volume, ordered as the JAX
+    package orders them.
     """
     parts = []
-    for octave, rows in extract_octaves(img, cfg, device, timer):
+    for octave, rows in extract_octaves(
+        img, cfg, device, timer,
+        initial_image_scale=initial_image_scale, descriptor=descriptor, on_gstack=on_gstack,
+    ):
         factor = np.float32(2.0**octave)  # octave scaling (MultiScale.cpp:531-543)
         host = {k: v.cpu().numpy() for k, v in rows.items()}
         parts.append(

@@ -2,10 +2,12 @@
 extrema mask, 2x subsample.
 
 PyTorch port of ``sift3d.pipeline.pyramid`` (pyramid.py:66-129), the
-non-TPU branch, with the fused CUDA kernel K1 (``dogs_extrema``) in place
-of the subtract + stencil.
+non-TPU branch, with two CUDA kernels: every blur is K7
+(``gauss_cuda.blur3d``), and K1 (``dogs_extrema``) takes the place of the
+subtract + stencil.
 
 Sigma schedule (MultiScale.cpp:288-291, 365-369, 526-527):
+  sigma_init = 0.5 / initial_image_scale
   level 0 blur: sqrt(sigma_base^2 - sigma_init^2) applied to the input
   level j blur: sigma_{j-1} * sqrt(2^(2/3) - 1), sigma_j = 1.6 * 2^(j/3)
   next octave base: 2x subsample of level 3 (sigma = 3.2 == 2 * 1.6)
@@ -17,13 +19,13 @@ import torch
 
 from sift3d_torch.core.config import SiftConfig, initial_blur_sigma
 from sift3d_torch.kernels.extrema_cuda import dogs_extrema
-from sift3d_torch.kernels.gauss import blur3d
+from sift3d_torch.kernels.gauss_cuda import blur3d
 from sift3d_torch.kernels.resample import subsample_2x
 
 
-def initial_blur_core(img: torch.Tensor, cfg: SiftConfig):
+def initial_blur_core(img: torch.Tensor, cfg: SiftConfig, initial_image_scale: float = 1.0):
     """Raise the input image to sigma_base (MultiScale.cpp:288-298)."""
-    return blur3d(img, initial_blur_sigma(cfg), cfg.blur_precision)
+    return blur3d(img, initial_blur_sigma(cfg, initial_image_scale), cfg.blur_precision)
 
 
 def octave_core(base: torch.Tensor, cfg: SiftConfig):

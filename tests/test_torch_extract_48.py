@@ -84,7 +84,7 @@ def test_extract_matches_jax_on_48_cells(cell, monkeypatch):
         assert abs(len(own) - len(want)) <= 0.02 * len(want)
     # witness: the port's feature stage on the JAX package's own pyramid
     octaves = iter(_jax_octaves(vol))
-    monkeypatch.setattr(tx_pyramid, "initial_blur_core", lambda img, cfg: img)
+    monkeypatch.setattr(tx_pyramid, "initial_blur_core", lambda img, cfg, initial_image_scale=1.0: img)
     monkeypatch.setattr(tx_pyramid, "octave_core", lambda base, cfg: (*next(octaves), base))
     got = extract_features(vol)
     desc_eq = (got.desc == want.desc).all(axis=1).mean() if len(got) == len(want) else 0.0

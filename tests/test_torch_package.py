@@ -5,7 +5,8 @@
 - A CPU tensor takes every kernel wrapper's plain path, and never builds.
 - Every ported kernel has its CUDA source.
 - On a CUDA card (marker `cuda`, skipped without one), every kernel equals
-  its plain version on the same tensors. This file imports no JAX, so it
+  its plain version on the same tensors; the blur (K7) equals its plain
+  version run on the CPU (cuBLAS on the card sums in another order). This file imports no JAX, so it
   also runs where JAX is missing: python -m pytest --noconftest -m cuda
   tests/test_torch_package.py
 """
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, hist_cuda, patch_cuda
+from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda
 
 torch.set_num_threads(1)
 
@@ -51,7 +52,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize(
-    "source", ["dogs_extrema.cu", "sample_identity.cu", "hist_topk.cu", "sample_rotated.cu"]
+    "source", ["dogs_extrema.cu", "sample_identity.cu", "hist_topk.cu", "sample_rotated.cu", "blur3d.cu"]
 )
 def test_cuda_sources_exist(source):
     text = (PACKAGE / "csrc" / source).read_text()
@@ -87,6 +88,9 @@ def _calls(gs, lvl, centers, scales, oris, hist, band):
             (gs, lvl, centers, scales, oris),
         ),
         "hist_topk": (hist_cuda.hist_topk, hist_cuda.hist_topk_plain, (*hist, band, 6)),
+        # one volume at the widest pyramid radius, and a batch at BRIEF's
+        "blur3d": (gauss_cuda.blur3d, gauss.blur3d, (gs[0], 3.0897, 0.01)),
+        "blur3d_batch": (gauss_cuda.blur3d, gauss.blur3d, (gs, 0.95, 0.01)),
     }
 
 
@@ -112,12 +116,14 @@ def test_other_devices_raise(rng):
     gs = _inputs(rng)[0].to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         extrema_cuda.dogs_extrema(gs)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        gauss_cuda.blur3d(gs[0], 1.2, 0.01)
 
 
 def test_library_path_is_keyed_on_the_sources():
     path = cuda_lib.library_path()
     assert path.parent.parent == cuda_lib.BUILD_DIR
-    assert len(cuda_lib.sources()) >= 5  # four kernels + the shared header
+    assert len(cuda_lib.sources()) >= 6  # five kernels + the shared header
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
 
 
@@ -132,7 +138,12 @@ def test_kernels_match_plain_on_the_card(rng):
         *moved, [t.to(dev) for t in hist], band.to(dev)
     ).items():
         before = wrapper.launches
-        got, want = wrapper(*args), plain(*args)
+        got = wrapper(*args)
+        if name.startswith("blur3d"):
+            want = plain(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+            got = got.cpu()
+        else:
+            want = plain(*args)
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1
         assert _equal(got, want), name
