@@ -12,12 +12,20 @@ Phases, each printing one line:
      4096 BRIEF patches, also exactly against the plain version on the CPU
      (not at the -2+ shapes); K1 on the octave-0 Gaussian stack of the T1
      grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
-     grid, and K2, K3 and K4 on the rows each of those octaves produces
-     (T1's tiled to 4096) — with the max abs difference, the tolerance,
-     and median milliseconds of both;
+     grid, K6 on the T1 octave-0 DoGs and on one -2+ shard's one-plane-halo
+     DoG slab, and K2, K3 and K4 on the rows each of those octaves produces
+     (T1's tiled to 4096), K8 and K9 on T1's primary-histogram rows, whose
+     K9 top-k must equal K3 — with the max abs difference, the tolerance,
+     median milliseconds of both, the bound (the least time the card could
+     take: bytes over 3.35 TB/s or f32 FLOPs over 67 TFLOP/s, whichever is
+     larger) and, where one PyTorch call computes the same function, that
+     call's milliseconds;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
-     kernel's launch count in that run (each must be > 0);
+     kernel's launch count in that run (each must be > 0); then K8's and
+     K9's own path (they have no caller on the main path): their entry
+     points smooth_histogram and smooth_histogram_peaks on T1's
+     primary-histogram points, and the launches there;
   4. the same call without the timer (host wall of five calls) and once
      under torch.profiler: device busy milliseconds, the trace's span, the
      idle share against both (the profiler slows the host, so the share
@@ -41,7 +49,20 @@ Phases, each printing one line:
   8. the CLI on the card against the CLI on the CPU for every flag, on the
      64^3-grid volumes of tests/test_torch_cli_flags.py: equal rows,
      locations and scales, identical descriptors on >= 99% of rows, and
-     for --debug-pgm the same PGM files byte for byte.
+     for --debug-pgm the same PGM files byte for byte;
+  9. Z-sharded extraction (extract_features_spatial, the CLI's --spatial)
+     on a 4-shard mesh on cuda:0, on the -2+ grid (the 2 GiB rule shards
+     octave 0) and on the T1 grid with 3 sharded octaves (halos relayed
+     over several shards), against extract_features on the card: the
+     sharded octaves' gathered Gaussian stacks and masks bit-equal, equal
+     counts, locations, scales and flags, >= 99% identical descriptors,
+     orientations within 1e-3, the -2+ rows equal to phase 7's; wall ms
+     beside extract_features' walls, device peak memory and each shard's
+     working set, and the launches
+     (K6 once per shard in every sharded octave, K1 once per tail octave,
+     K7, K2, K3, K4 > 0); then spatial on the card against spatial on the
+     CPU on synthetic_volume(64), and over every card when there are two
+     or more.
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
 or without the sift3d_torch package beside it, it exits non-zero before
@@ -111,6 +132,108 @@ def max_abs(a, b) -> float:
     return float((a[both] - b[both]).abs().max()) if both.any() else 0.0
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+
+
+def bound(n_bytes: float, flops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the f32 FLOPs over the peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def touched_voxels(shape, lvl, x, y, z) -> int:
+    """Distinct voxels of a [L, Z, Y, X] stack that 2-tap trilinear reads at
+    continuous coordinates x, y, z ([R, P]) of level lvl [R] touch: what a
+    sampler must read at least once."""
+    import itertools
+
+    import torch
+
+    from sift3d_torch.kernels.resample import interp_coord
+
+    _, zd, yd, xd = shape
+    ix, _ = interp_coord(x, xd)
+    iy, _ = interp_coord(y, yd)
+    iz, _ = interp_coord(z, zd)
+    base = ((lvl.to(torch.int64)[:, None] * zd + iz) * yd + iy) * xd + ix
+    offs = torch.tensor(
+        [(dz * yd + dy) * xd + dx for dz, dy, dx in itertools.product((0, 1), repeat=3)],
+        device=base.device,
+    )
+    return int(torch.unique((base[..., None] + offs).reshape(-1)).numel())
+
+
+def patch_points(lvl, centers, scales, oris=None):
+    """The (x, y, z) sample coordinates [R, 1331] of 11^3 patches, identity
+    or rotated (the samplers' grid)."""
+    import torch
+
+    from sift3d_torch.kernels.patch import invert_3x3, patch_grid
+
+    grid = torch.from_numpy(patch_grid()).to(centers.device)  # [P, (x, y, z)]
+    fac = (2.0 * scales / 5.0)[:, None]
+    if oris is None:
+        return [grid[:, i] * fac + centers[:, i, None] for i in range(3)]
+    inv = invert_3x3(oris)
+    return [(inv[:, i, 0, None] * grid[:, 0] + inv[:, i, 1, None] * grid[:, 1]
+             + inv[:, i, 2, None] * grid[:, 2]) * fac + centers[:, i, None] for i in range(3)]
+
+
+def grid_sample_call(gstack, lvl, centers, scales, oris=None):
+    """One torch.nn.functional.grid_sample call that samples the same 11^3
+    patches (trilinear, border-saturating, voxel centres at i + 0.5) on all
+    levels of the stack; the caller picks each row's level. The library
+    yardstick of K2 and K4 (it reads 0 at no x, unlike K4's quirk)."""
+    import torch
+
+    _, zd, yd, xd = gstack.shape
+    r = lvl.shape[0]
+    x, y, z = patch_points(lvl, centers, scales, oris)
+    norm = torch.stack([2.0 * x / xd - 1.0, 2.0 * y / yd - 1.0, 2.0 * z / zd - 1.0], dim=-1)
+    grid = norm.reshape(1, r * 11, 11, 11, 3).contiguous()
+    inp = gstack[None]
+    return lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border", align_corners=False
+    )
+
+
+def splat_index_add_call(cx, cy, cz, w):
+    """One index_add_ that accumulates the raw splat (8 trilinear corners
+    per point, indices and weights precomputed): K8's library yardstick."""
+    import itertools
+
+    import torch
+
+    from sift3d_torch.kernels.resample import interp_bin
+
+    c = cx.shape[0]
+    (ix, wx), (iy, wy), (iz, wz) = (interp_bin(u, 11) for u in (cx, cy, cz))
+    flat, vals = [], []
+    for dz, dy, dx in itertools.product((0, 1), repeat=3):
+        f = (torch.arange(c, device=cx.device)[:, None] * 11 + iz + dz) * 121 + (iy + dy) * 11 + ix + dx
+        flat.append(f)
+        vals.append(w * (wz if dz == 0 else 1 - wz) * (wy if dy == 0 else 1 - wy) * (wx if dx == 0 else 1 - wx))
+    flat, vals = torch.cat(flat, dim=1).reshape(-1), torch.cat(vals, dim=1).reshape(-1)
+    return lambda: torch.zeros(c * 1331, device=cx.device).index_add_(0, flat, vals)
+
+
+def conv3d_call(vol, sigma, min_value):
+    """One torch.nn.functional.conv3d with the dense separable product of
+    the taps, zero padding, TF32 off: K7's library yardstick."""
+    import torch
+
+    from sift3d_torch.kernels.gauss_cuda import device_taps
+
+    taps = device_taps(float(sigma), float(min_value), vol.device)
+    r = taps.shape[0] // 2
+    weight = (taps[:, None, None] * taps[None, :, None] * taps[None, None, :])[None, None].contiguous()
+    inp = vol.reshape((-1, 1) + tuple(vol.shape[-3:]))
+    torch.backends.cudnn.allow_tf32 = False
+    return lambda: torch.nn.functional.conv3d(inp, weight, padding=r)
+
+
 def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
@@ -152,20 +275,24 @@ def compare_kernels(vol, cfg):
 
     results = []
 
-    def record(name, source, replaces, kernel, plain, tol, note):
+    def record(name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None):
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         err = max(max_abs(g.float(), w.float()) for g, w in zip(got, want))
         ms, plain_ms = median_ms(kernel), median_ms(plain)
+        bound_ms, bound_by = bound(n_bytes, flops)
+        library_ms = None if library is None else median_ms(library)
         print(
             f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
-            f"kernel {ms!r} ms, plain {plain_ms!r} ms"
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
+            f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms"
         )
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
         results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms))
 
     # K7 at the blur shapes of the paths: against cuBLAS (the plain version
     # on the card, another summation order) within 1e-6 of the peak, and
@@ -184,11 +311,13 @@ def compare_kernels(vol, cfg):
     ]
     for note, x, sigma, on_cpu in blur_cases:
         peak = float(x.abs().max())
+        taps = gauss_cuda.device_taps(float(sigma), float(cfg.blur_precision), x.device).shape[0]
         record(
             "blur3d", "sift3d_torch/csrc/blur3d.cu", "sift3d/kernels/gauss_pallas.py:97",
             lambda: gauss_cuda.blur3d(x, sigma, cfg.blur_precision),
             lambda: gauss.blur3d(x, sigma, cfg.blur_precision),
             1e-6 * peak, f"{note} {tuple(x.shape)}, sigma {sigma!r}",
+            8 * x.numel(), 2 * 3 * taps * x.numel(), conv3d_call(x, sigma, cfg.blur_precision),
         )
         if on_cpu:
             got = gauss_cuda.blur3d(x, sigma, cfg.blur_precision).cpu()
@@ -208,12 +337,28 @@ def compare_kernels(vol, cfg):
     ):
         gstack, _, _, _ = pyramid.octave_core(pyramid.initial_blur_core(img, cfg, scale), cfg)
         gstack = gstack.contiguous()
+        vox = gstack[0].numel()
         record(
             "dogs_extrema", "sift3d_torch/csrc/dogs_extrema.cu", "sift3d/kernels/extrema_pallas.py:284",
             lambda: extrema_cuda.dogs_extrema(gstack), lambda: extrema_cuda.dogs_extrema_plain(gstack),
-            0.0, f"{label} octave-0 gstack {tuple(gstack.shape)} (exact)",
+            0.0, f"{label} octave-0 gstack {tuple(gstack.shape)} (exact)", 47 * vox, 5 * vox,
         )
         dogs, mask = extrema_cuda.dogs_extrema(gstack)
+        # K6 on the octave's DoGs (T1), and on shard 1 of a 4-shard -2+
+        # octave 0 with its one-plane halo (the Z-sharded path's input)
+        if label != "-2-":
+            if label == "-2+":
+                tz = -(-dogs.shape[1] // 8) * 8 // 4
+                d6 = dogs[:, tz - 1 : 2 * tz + 1].contiguous()
+                note6 = f"-2+ shard 1 of 4, DoG slab {tuple(d6.shape)} (exact)"
+            else:
+                d6, note6 = dogs, f"T1 octave-0 DoGs {tuple(dogs.shape)} (exact)"
+            record(
+                "extrema_mask", "sift3d_torch/csrc/dogs_extrema.cu", "sift3d/kernels/extrema_pallas.py:330",
+                lambda: extrema_cuda.extrema_mask(d6), lambda: extrema_cuda.extrema_mask_plain(d6),
+                0.0, note6, 23 * d6[0].numel(), 0,
+            )
+            del d6
 
         lvl, zyx, _ = features.candidate_table(mask)
         xyz, scale_, in_bounds, patches = features.gather_stage(
@@ -222,11 +367,15 @@ def compare_kernels(vol, cfg):
         lvl32 = lvl.to(torch.int32)
         rows = at_least([lvl32, xyz, scale_], tile)
         peak = float(gstack.abs().max())
+        n_rows = rows[0].shape[0]
         record(
             "sample_identity", "sift3d_torch/csrc/sample_identity.cu", "sift3d/kernels/patch.py:375",
             lambda: patch_cuda.sample_identity(gstack, *rows),
             lambda: patch_cuda.sample_identity_plain(gstack, *rows),
-            1e-5 * peak, f"{label}: {lvl.shape[0]} octave-0 candidates as {rows[0].shape[0]} rows",
+            1e-5 * peak, f"{label}: {lvl.shape[0]} octave-0 candidates as {n_rows} rows",
+            20 * n_rows + 4 * 1331 * n_rows
+            + 4 * touched_voxels(gstack.shape, rows[0], *patch_points(*rows)),
+            21 * 1331 * n_rows, grid_sample_call(gstack, *rows),
         )
 
         pn, _, _, eig_keep = features.eig_stage(patches, cfg)
@@ -236,14 +385,43 @@ def compare_kernels(vol, cfg):
         hx, hy, hz = features.splat_coords(e3)
         hrows = at_least([hx, hy, hz, wgt], tile)
         k1 = cfg.max_primary_orientations
+        c_rows, v_pts = hrows[0].shape
+        # nonzero blurred factors per axis and point: the 2 splat bins
+        # widened by the band's radius on each side
+        nz = 2 + 2 * (int((band[0] != 0).sum()) - 1)
+        hist_note = f"{label}: {kidx.shape[0]} octave-0 primary histograms as {c_rows} rows, V={v_pts}"
         record(
             "hist_topk", "sift3d_torch/csrc/hist_topk.cu", "sift3d/kernels/hist_pallas.py:368",
             lambda: hist_cuda.hist_topk(*hrows, band, k1),
             lambda: hist_cuda.hist_topk_plain(*hrows, band, k1),
-            1e-5 * float(wgt.sum(dim=1).max()),
-            f"{label}: {kidx.shape[0]} octave-0 primary histograms as {hrows[0].shape[0]} rows, "
-            f"V={hx.shape[1]}, k={k1}",
+            1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note}, k={k1}",
+            16 * c_rows * v_pts + 4 * 121 + 64 * k1 * c_rows, 2 * nz**3 * c_rows * v_pts,
         )
+        if label == "T1":
+            # K8 and K9 on the same rows; K9's top-k must be K3's output
+            record(
+                "splat_histogram_raw", "sift3d_torch/csrc/hist_topk.cu",
+                "sift3d/kernels/hist_pallas.py:164",
+                lambda: hist_cuda.splat_histogram_raw_bins(*hrows),
+                lambda: hist_cuda.splat_histogram_raw_plain(*hrows),
+                1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note} (raw splat)",
+                16 * c_rows * v_pts + 4 * 1331 * c_rows, 16 * c_rows * v_pts,
+                splat_index_add_call(*hrows),
+            )
+            record(
+                "smooth_histogram_peaks", "sift3d_torch/csrc/hist_topk.cu",
+                "sift3d/kernels/hist_pallas.py:396",
+                lambda: hist_cuda.smooth_histogram_peaks_bins(*hrows, band),
+                lambda: hist_cuda.smooth_histogram_peaks_plain(*hrows, band),
+                1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note} (histogram and peak plane)",
+                16 * c_rows * v_pts + 4 * 121 + 8 * 1331 * c_rows, 2 * nz**3 * c_rows * v_pts,
+            )
+            top = hist_cuda.peak_rows(*hist_cuda.smooth_histogram_peaks_bins(*hrows, band), k1)
+            k3 = hist_cuda.hist_topk(*hrows, band, k1)
+            same = bool(torch.equal(top, k3))
+            print(f"phase2 smooth_histogram_peaks: top-{k1} of K9's peak plane equals K3 bit for bit: {same}")
+            if not same:
+                raise AssertionError("the top-k of K9's peak plane differs from K3's output")
 
         o = features.canonical_stage(pn[kidx], cfg)
         row, slot = features.reoriented_slots(o["ori_valid"], cfg)
@@ -252,11 +430,15 @@ def compare_kernels(vol, cfg):
         rrows = at_least(
             [lvl32[kidx][row], xyz[kidx][row], scale_[kidx][row], ori_r], tile
         )
+        n_rows = rrows[0].shape[0]
         record(
             "sample_rotated", "sift3d_torch/csrc/sample_rotated.cu", "sift3d/kernels/patch.py:889",
             lambda: patch_cuda.sample_rotated(gstack, *rrows),
             lambda: patch_cuda.sample_rotated_plain(gstack, *rrows),
-            1e-5 * peak, f"{label}: {row.shape[0]} octave-0 reoriented rows as {rrows[0].shape[0]} rows",
+            1e-5 * peak, f"{label}: {row.shape[0]} octave-0 reoriented rows as {n_rows} rows",
+            56 * n_rows + 4 * 1331 * n_rows
+            + 4 * touched_voxels(gstack.shape, rrows[0], *patch_points(*rrows)),
+            42 * 1331 * n_rows, grid_sample_call(gstack, *rrows),
         )
         del gstack, dogs, mask, patches
 
@@ -311,14 +493,16 @@ def run_cli(argv, workdir: str, device=None):
         os.chdir(here)
 
 
-def cli_full_width(vol_np, wrappers, tmp: str) -> None:
-    """Phase 7: the CLI on the card with the flags at full width."""
+def cli_full_width(vol_np, wrappers, tmp: str) -> dict:
+    """Phase 7: the CLI on the card with the flags at full width; returns
+    the .key rows of each flag."""
     from sift3d_torch.io import keyfile, nifti
 
     t1 = os.path.join(tmp, "t1.nii")
     nifti.write(t1, vol_np)
     aniso = os.path.join(tmp, "t1_aniso.nii")
     write_aniso(aniso, vol_np[::2], seed=4)
+    rows_of = {}
     for flag, path in (("-2+", t1), ("-w", aniso), ("-ws", aniso), ("-2-", t1), ("-bn", t1)):
         walls = []
         for _ in range(2):
@@ -338,6 +522,8 @@ def cli_full_width(vol_np, wrappers, tmp: str) -> None:
         )
         if rows == 0 or min(launches.values()) <= 0:
             raise AssertionError(f"the CLI with {flag} did not run every kernel: {launches}, {rows} rows")
+        rows_of[flag] = rows
+    return rows_of
 
 
 def cli_card_vs_cpu(wrappers, tmp: str) -> None:
@@ -385,6 +571,150 @@ def cli_card_vs_cpu(wrappers, tmp: str) -> None:
             raise AssertionError(f"the CLI with {flag} on the card disagrees with the CLI on the CPU")
         if flag == "--debug-pgm" and len(pgms) < 2:
             raise AssertionError("--debug-pgm wrote no PGM files")
+
+
+def dogs_stack_rows(vol, cfg):
+    """(gstack, dogs, lvl, zyx) of the octave-0 candidates of vol."""
+    from sift3d_torch.kernels import extrema_cuda
+    from sift3d_torch.pipeline import features, pyramid
+
+    gstack, _, _, _ = pyramid.octave_core(pyramid.initial_blur_core(vol, cfg), cfg)
+    dogs, mask = extrema_cuda.dogs_extrema(gstack.contiguous())
+    lvl, zyx, _ = features.candidate_table(mask)
+    return gstack, dogs, lvl, zyx
+
+
+def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
+    """Phase 9: Z-sharded extraction on a 4-shard mesh on cuda:0 against
+    extract_features on the card. Returns the launches of the -2+ run."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.dist import halo, spatial
+    from sift3d_torch.dist.mesh import make_mesh
+    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels.resample import double_size
+    from sift3d_torch.pipeline import pyramid
+    from sift3d_torch.pipeline.extract import extract_features
+    from sift3d_torch.utils.synthetic import repeatability, synthetic_volume
+
+    wrappers = {
+        "extrema_mask": extrema_cuda.extrema_mask,
+        "blur3d": gauss_cuda.blur3d,
+        "dogs_extrema": extrema_cuda.dogs_extrema,
+        "sample_identity": patch_cuda.sample_identity,
+        "hist_topk": hist_cuda.hist_topk,
+        "sample_rotated": patch_cuda.sample_rotated,
+    }
+    n = 4
+    mesh = make_mesh(n, ["cuda:0"])
+    dev = mesh[0]
+    first = None
+    for label, img, scale, octaves in (("-2+", double_size(vol), 0.5, None), ("T1", vol, 1.0, 3)):
+        zd, yd, xd = img.shape
+        k = spatial.sharded_octave_count(img.shape, cfg, octaves)
+        n_oct = pyramid.num_octaves(img.shape, cfg)
+        zp = -(-zd // (n * 2**k)) * (n * 2**k)
+        # the sharded octaves' pyramids, gathered, against the single-device ones
+        padded = torch.cat([img, img.new_zeros((zp - zd, yd, xd))])
+        base = spatial.initial_blur_spatial(halo.shard_volume(padded, mesh), cfg, zd, scale)
+        del padded
+        want = pyramid.initial_blur_core(img, cfg, scale)
+        true_z, equal = zd, []
+        for _ in range(k):
+            octv = spatial.octave_step_spatial(base, cfg, true_z)
+            gstack, _, mask, nxt = pyramid.octave_core(want, cfg)
+            equal.append(bool(torch.equal(halo.planes(octv.gstack, 0, true_z, dev), gstack)
+                              and torch.equal(halo.planes(octv.mask, 0, true_z, dev), mask)))
+            base, want, true_z = octv.next_base, nxt, true_z // 2
+            del octv, gstack, mask
+        del base, want
+        single_walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for rep in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            single = extract_features(img, cfg, dev, initial_image_scale=scale)
+            torch.cuda.synchronize()
+            single_walls.append((time.perf_counter() - t0) * 1e3)
+        single_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for rep in range(2):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats = spatial.extract_features_spatial(
+                img, mesh, cfg, sharded_octaves=octaves, initial_image_scale=scale
+            )
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches = {name: w.launches for name, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        tz, halo_planes = zp // n, spatial.sampling_halo(cfg)
+        # one shard's octave-0 pyramid (6 Gaussian + 5 DoG f32 + 3 mask
+        # bytes per voxel) and its feature stage's Gaussian slab
+        shard_bytes = (6 * 4 + 5 * 4 + 3) * tz * yd * xd
+        slab_bytes = 6 * 4 * min(tz + 2 * halo_planes, zd) * yd * xd
+        same = len(feats) == len(single) > 0
+        geo = same and bool((feats.xyz == single.xyz).all() and (feats.scale == single.scale).all()
+                            and (feats.info == single.info).all())
+        desc = float((feats.desc == single.desc).all(axis=1).mean()) if same else 0.0
+        d_ori = float(np.abs(feats.ori - single.ori).max()) if same else float("inf")
+        key_rows = int(feats.eig_mask(cfg.eig_threshold).sum())
+        print(
+            f"phase9 spatial {label} {tuple(img.shape)} on {n} shards of cuda:0, {k} of {n_oct} "
+            f"octaves sharded (Z padded to {zp}, tz {tz}, sampling halo {halo_planes}): wall_ms "
+            f"{walls!r} (extract_features {single_walls!r}); {len(feats)} features, {key_rows} .key "
+            f"rows; extract_features {len(single)}; "
+            f"sharded octaves' gathered stacks and masks bit-equal {equal}; equal locations, scales "
+            f"and flags {geo}; identical descriptors {desc!r}; max orientation diff {d_ori!r}; device "
+            f"peak {peak} B (extract_features {single_peak} B); per shard: octave-0 pyramid "
+            f"{shard_bytes} B, feature-stage Gaussian slab {slab_bytes} B; launches {json.dumps(launches)}"
+        )
+        ok = (all(equal) and len(equal) == k and geo and desc >= 0.99 and d_ori <= 1e-3
+              and launches["extrema_mask"] == n * k and launches["dogs_extrema"] == n_oct - k
+              and min(launches.values()) > 0)
+        if label == "-2+":
+            ok = ok and key_rows == key_rows_2p
+            first = launches
+        if not ok:
+            raise AssertionError(f"the spatial path on the {label} grid disagrees with extract_features")
+        del feats, single
+
+    small = synthetic_volume(64)
+    on_gpu = spatial.extract_features_spatial(small, mesh, cfg, sharded_octaves=2)
+    on_cpu = spatial.extract_features_spatial(small, make_mesh(n, ["cpu"]), cfg, sharded_octaves=2)
+    same = len(on_gpu) == len(on_cpu) > 0
+    rep = (repeatability(on_gpu, on_cpu)[0], repeatability(on_cpu, on_gpu)[0]) if same else (0.0, 0.0)
+    desc = float((on_gpu.desc == on_cpu.desc).all(axis=1).mean()) if same else 0.0
+    print(
+        f"phase9 spatial card vs cpu on synthetic_volume(64), 2 of 4 octaves sharded over {n} "
+        f"shards: counts {len(on_gpu)} / {len(on_cpu)}; repeatability {rep!r}; identical "
+        f"descriptors {desc!r}"
+    )
+    if not (same and rep == (1.0, 1.0) and desc >= 0.99):
+        raise AssertionError("spatial on the card disagrees with spatial on the CPU")
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        cards = make_mesh()
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
+        feats = spatial.extract_features_spatial(vol, cards, cfg, sharded_octaves=3)
+        peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
+        single = extract_features(vol, cfg, dev)
+        same = len(feats) == len(single) > 0 and bool((feats.xyz == single.xyz).all())
+        print(
+            f"phase9 spatial T1 over {count} cards: {len(feats)} features, equal to one card "
+            f"{same}; device peak per shard's card {peaks} B"
+        )
+        if not same:
+            raise AssertionError("the spatial path over several cards disagrees with one card")
+    else:
+        print("phase9 multi-card transport not run: this machine has one CUDA card")
+    return first
 
 
 def main() -> int:
@@ -449,8 +779,35 @@ def main() -> int:
     ranks_ok = bool((np.sort(feats.desc, axis=1) == np.arange(64)).all())
     if not (finite and ranks_ok):
         raise AssertionError(f"bad features: finite={finite}, descriptors are ranks={ranks_ok}")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    # K8 and K9 have no caller on the main path (nor in the JAX package):
+    # their own path is their entry points, here on T1's primary histograms
+    from sift3d_torch.pipeline import features
+
+    _, _, in_bounds, patches = features.gather_stage(*dogs_stack_rows(vol, cfg), tuple(cfg.level_sigmas()))
+    pn, _, _, eig_keep = features.eig_stage(patches, cfg)
+    e3, wgt = features.sphere_edges(pn[in_bounds & eig_keep])
+    centred = [u + 0.5 for u in features.splat_coords(e3)]  # the JAX functions' 0.5 centres
+    band = features.ori_hist_band(cfg, dev)
+    entry = {"splat_histogram_raw": hist_cuda.splat_histogram_raw_bins,
+             "smooth_histogram_peaks": hist_cuda.smooth_histogram_peaks_bins,
+             "blur3d": gauss_cuda.blur3d}
+    for w in entry.values():
+        w.launches = 0
+    smoothed = hist_cuda.smooth_histogram(*centred, wgt, cfg.ori_hist_blur_sigma)
+    hb, pk = hist_cuda.smooth_histogram_peaks(*centred, wgt, band)
+    torch.cuda.synchronize()
+    entry_launches = {name: w.launches for name, w in entry.items()}
+    fin = bool(torch.isfinite(smoothed).all() and torch.isfinite(hb).all()
+               and torch.equal(torch.isfinite(pk), pk > -torch.inf))
+    print(
+        f"phase3 K8/K9 entry points on {wgt.shape[0]} T1 octave-0 primary histograms "
+        f"(V={wgt.shape[1]}): smooth_histogram {tuple(smoothed.shape)}, smooth_histogram_peaks "
+        f"{int(torch.isfinite(pk).sum())} peaks; finite {fin}; launches {json.dumps(entry_launches)}"
+    )
+    if not fin or min(entry_launches.values()) <= 0:
+        raise AssertionError(f"the K8/K9 entry points did not run their kernels: {entry_launches}")
+    launches.update({k: entry_launches[k] for k in ("splat_histogram_raw", "smooth_histogram_peaks")})
+    del patches, pn, e3, wgt, centred, smoothed, hb, pk
 
     walls = []
     for _ in range(5):
@@ -521,13 +878,17 @@ def main() -> int:
         raise AssertionError("the CLI did not run the kernels on the card, or disagrees with the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
-        cli_full_width(vol_np, wrappers, tmp)
+        rows_of = cli_full_width(vol_np, wrappers, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
+    launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]
 
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     table = {"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces", "launches",
-                                 "max_abs_err", "ms", "plain_ms")}
+                                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}
         for k in kernels
     ]}
     print(json.dumps(table))

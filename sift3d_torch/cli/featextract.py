@@ -15,12 +15,16 @@ Usage:
       --debug-pgm : write the mid XY slice of the input (image.pgm) and of
              each octave's first blur level (image_o<N>.pgm) to the
              current directory
+      --spatial[=N] : Z-shard the volume over N CUDA devices (all by
+             default) and run the first octaves sharded: for volumes too
+             large for one card
+      --spatial-octaves=K : shard the first K octaves (default: those
+             whose working set exceeds 2 GiB)
       --time : print per-stage timing summary
 
-Every flag of ``sift3d.cli.featextract`` but --spatial (Z-sharding over
-several devices, ROADMAP.md), step for step and with the same comment
-headers, so the two .key files can be compared line by line (they differ
-at most in the last printed digit of orientations and eigenvalues:
+Every flag of ``sift3d.cli.featextract``, step for step and with the same
+comment headers, so the two .key files can be compared line by line (they
+differ at most in the last printed digit of orientations and eigenvalues:
 ROADMAP.md, Queue 3).
 """
 
@@ -33,6 +37,8 @@ import torch
 
 from sift3d_torch.core.config import DEFAULT_CONFIG
 from sift3d_torch.core.device import resolve_device
+from sift3d_torch.dist.mesh import make_mesh
+from sift3d_torch.dist.spatial import extract_features_spatial
 from sift3d_torch.io import keyfile, nifti
 from sift3d_torch.kernels.resample import double_size, isotropic_resample, subsample_2x
 from sift3d_torch.pipeline.extract import extract_features
@@ -48,9 +54,11 @@ def print_options():
 
 def main(argv=None, device=None) -> int:
     """Run the CLI. device: where to extract; None means cuda:<N> from -d<N>
-    (cuda:0 without it), and raises when there is no CUDA card. Passing a
+    (cuda:0 without it), or with --spatial[=N] the first N CUDA devices
+    (all without N), and raises when there is no CUDA card. Passing a
     device (such as "cpu", the kernels' plain versions) is for callers
-    that hold the port against another implementation."""
+    that hold the port against another implementation; --spatial=N then
+    puts N shards on that one device."""
     argv = list(sys.argv[1:] if argv is None else argv)
     index = 0
     double_image = 0
@@ -59,16 +67,11 @@ def main(argv=None, device=None) -> int:
     descriptor = "goh"
     show_time = False
     debug_pgm = False
+    spatial_devices = None  # None: no sharding; 0: every device
+    spatial_octaves = None
     i = 0
     while i < len(argv) and argv[i].startswith("-"):
         a = argv[i]
-        if a.startswith("--spatial"):
-            print(
-                f"Error: {a} (Z-sharding over several devices) is not ported to the "
-                "PyTorch package yet (ROADMAP.md, Queue 1); use python -m "
-                "sift3d.cli.featextract for it."
-            )
-            return -1
         if a.startswith("-2"):
             double_image = -1 if a[2:3] == "-" else 1
         elif a.startswith("-d") and a[2:].isdigit():
@@ -83,6 +86,21 @@ def main(argv=None, device=None) -> int:
             show_time = True
         elif a == "--debug-pgm":
             debug_pgm = True
+        elif a.startswith("--spatial"):
+            # Z-shard the volume over N devices (sift3d_torch.dist.spatial)
+            try:
+                if a.startswith("--spatial-octaves="):
+                    spatial_octaves = int(a.split("=", 1)[1])
+                    if spatial_devices is None:
+                        spatial_devices = 0
+                elif a == "--spatial" or a.startswith("--spatial="):
+                    spatial_devices = int(a.split("=", 1)[1]) if "=" in a else 0
+                else:
+                    raise ValueError(a)
+            except ValueError:
+                print(f"Error: unknown command line argument: {a}")
+                print_options()
+                return -1
         else:
             print(f"Error: unknown command line argument: {a}")
             print_options()
@@ -92,6 +110,7 @@ def main(argv=None, device=None) -> int:
         print_options()
         return -1
     in_path, out_path = argv[i], argv[i + 1]
+    mesh = None
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -99,6 +118,13 @@ def main(argv=None, device=None) -> int:
                 "package's CLI (python -m sift3d.cli.featextract) runs on other devices"
             )
         device = f"cuda:{index}"
+        if spatial_devices is not None:
+            n_dev = torch.cuda.device_count()
+            n = n_dev if spatial_devices == 0 else min(spatial_devices, n_dev)
+            mesh = make_mesh(devices=[f"cuda:{d}" for d in range(n)])
+            device = mesh[0]
+    elif spatial_devices is not None:
+        mesh = make_mesh(space=max(spatial_devices, 1), devices=[device])
 
     print(f"Extracting features: {in_path}")
     try:
@@ -142,10 +168,16 @@ def main(argv=None, device=None) -> int:
             write_volume_slice(f"image_o{octave}.pgm", gstack[1])
 
     timer = StageTimer(enabled=show_time)
-    feats = extract_features(
-        data, cfg, device=dev, timer=timer,
-        initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
-    )
+    if mesh is not None:
+        feats = extract_features_spatial(
+            data, mesh, cfg, sharded_octaves=spatial_octaves, timer=timer,
+            initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
+        )
+    else:
+        feats = extract_features(
+            data, cfg, device=dev, timer=timer,
+            initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
+        )
 
     # size factor for -2 options (featExtract.cpp:422-427, 502-505)
     size_factor = {1: 0.5, -1: 2.0}.get(double_image, 1.0)

@@ -8,10 +8,10 @@ import torch
 def resolve_device(device=None, like=None) -> torch.device:
     """The torch.device an entry point runs on.
 
-    device: anything torch.device accepts; None means the device of `like`
-    when it is a tensor, else the CPU. Nothing is picked for the caller:
-    asking for a CUDA device without one raises in PyTorch, and the CPU
-    runs only when asked for (or implied by a CPU tensor).
+    device: anything torch.device accepts. None means the card: the device
+    of `like` when it is a CUDA tensor, else the current CUDA device, for a
+    numpy array and a CPU tensor alike; without a CUDA card it raises. The
+    CPU runs only when the caller asks for it (device="cpu").
 
     On CUDA this switches TF32 off for cuBLAS matmuls and cuDNN
     convolutions. PyTorch's cuDNN default is TF32 for f32 convolutions;
@@ -19,10 +19,17 @@ def resolve_device(device=None, like=None) -> torch.device:
     needed full-f32 blur matmuls for parity). The port computes in f32
     only.
     """
-    if device is None:
-        dev = like.device if isinstance(like, torch.Tensor) else torch.device("cpu")
-    else:
+    if device is not None:
         dev = torch.device(device)
+    elif isinstance(like, torch.Tensor) and like.device.type == "cuda":
+        dev = like.device
+    elif torch.cuda.is_available():
+        dev = torch.device("cuda", torch.cuda.current_device())
+    else:
+        raise RuntimeError(
+            "the port runs on a CUDA card and found none; pass device=\"cpu\" to run "
+            "the kernels' plain versions on the CPU"
+        )
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

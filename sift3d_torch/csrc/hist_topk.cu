@@ -1,29 +1,44 @@
 // K3: blurred 11^3 orientation histogram -> top-k strict peaks.
+// K8: the raw (unblurred) splat histogram.  K9: the blurred histogram and its
+// strict-peak plane.
 //
-// Replaces the Pallas kernel sift3d/kernels/hist_pallas.py:
-// smooth_histogram_topk (_hist_topk_kernel). Per row c of V weighted
-// points at bin coordinates (bin i's centre at i; the Pallas kernel takes
-// them + 0.5): trilinear splat into an 11^3 histogram, zero-border Gaussian blur,
-// strict interior 26-neighbour peaks, the k largest by repeated max with the
-// lowest flat index first on ties (lax.top_k's order). Output row [k, 16]:
-// lane 0 the peak value (-inf when no peak is left), lanes 1-6 the blurred
-// histogram at x-1, x+1, y-1, y+1, z-1, z+1, lane 7 the flat position
-// (z * 11 + y) * 16 + x, lanes 8-15 zero. An empty slot sits at (1, 1, 1).
+// Replaces the Pallas kernels sift3d/kernels/hist_pallas.py:
+// smooth_histogram_topk (_hist_topk_kernel, K3), splat_histogram_raw
+// (_hist_kernel, K8) and smooth_histogram_peaks (_hist_peaks_kernel, K9).
+// Per row c of V weighted points at bin coordinates (bin i's centre at i;
+// the Pallas kernels take them + 0.5): trilinear splat into an 11^3
+// histogram, zero-border Gaussian blur, strict interior 26-neighbour peaks,
+// the k largest by repeated max with the lowest flat index first on ties
+// (lax.top_k's order). K3's output row [k, 16]: lane 0 the peak value (-inf
+// when no peak is left), lanes 1-6 the blurred histogram at x-1, x+1, y-1,
+// y+1, z-1, z+1, lane 7 the flat position (z * 11 + y) * 16 + x, lanes 8-15
+// zero. An empty slot sits at (1, 1, 1). K8 stops after the splat and writes
+// the [C, 11, 11, 11] histogram; K9 stops after the peak mask and writes the
+// blurred histogram and the peak plane (the histogram where a strict
+// interior peak, -inf elsewhere), both [C, 11, 11, 11]: the TPU's padded
+// [C, 128, 16] layout is an artifact of its (8, 128) tiling.
 //
-// What bounds it on an H100: arithmetic, not memory. A row reads only
-// 4 * V floats (V = 485) but forms 1331 * V products.
+// What bounds them on an H100: arithmetic, not memory, as written. A row
+// reads only 4 * V floats (V = 485) but forms 1331 * V products; K8's and
+// K9's outputs (1331 floats, or 2 x 1331, per row) are larger than their
+// inputs but still small next to that.
 //
 // Design: one block per row; the histogram lives in shared memory. Splat
 // and blur are separable, so each point contributes
 //   (w * fz[z]) * (fy[y] * fx[x])
 // with per-axis blurred factors f = w0 * B[i0] + (1 - w0) * B[i0 + 1]
-// (the JAX CPU path's form, features.py:109-175). Points are staged in
+// (the JAX CPU path's form, features.py:109-175). K8 is the same
+// accumulation with the identity as the band B, so each factor is one of
+// the two trilinear weights exactly. Points are staged in
 // shared memory 128 at a time; each thread owns up to 6 bins, accumulates
 // a chunk's points in index order with fused multiply-adds and adds the
 // chunk sum to the bin: the order in which the JAX package's CPU path sums
 // (its 128-point einsum chunks), so the two agree to the bit. No float
 // atomics: the order is fixed, so results repeat from run to run (atomics
-// would reorder the sums and flip near-threshold orientation peaks).
+// would reorder the sums and flip near-threshold orientation peaks). The
+// three kernels share one body, templated on where it stops, so on the same
+// rows K9's histogram is K3's and the top-k of K9's peak plane is K3's
+// output bit for bit.
 
 #include "common.cuh"
 
@@ -35,10 +50,19 @@ constexpr int kChunk = 128;  // points staged per pass
 constexpr int kLanes = 16;   // output lanes per peak
 constexpr int kWarps = kThreads / 32;
 
-__global__ void __launch_bounds__(kThreads)
-hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
-                 const float* __restrict__ cz, const float* __restrict__ w,
-                 const float* __restrict__ band, float* __restrict__ out, int V, int k) {
+enum Mode { kSplat, kPeaks, kTopk };  // where the body stops
+
+// kSplat writes the histogram to hist_out; kPeaks writes it and the peak
+// plane to hist_out / pk_out (each [C, 1331]); kTopk writes out [C, k, 16].
+template <int M>
+__device__ __forceinline__ void hist_body(const float* __restrict__ cx,
+                                          const float* __restrict__ cy,
+                                          const float* __restrict__ cz,
+                                          const float* __restrict__ w,
+                                          const float* __restrict__ band,
+                                          float* __restrict__ hist_out,
+                                          float* __restrict__ pk_out,
+                                          float* __restrict__ out, int V, int k) {
   using namespace sift3d;
   constexpr int P = kPatchDim;
   __shared__ float band_s[P * P];
@@ -89,8 +113,12 @@ hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
 #pragma unroll
   for (int j = 0; j < kBinsPerThread; ++j) {
     const int b = tid + j * kThreads;
-    if (b < kPatchVox) hist[b] = acc[j];
+    if (b < kPatchVox) {
+      hist[b] = acc[j];
+      if (M != kTopk) hist_out[(size_t)c * kPatchVox + b] = acc[j];
+    }
   }
+  if (M == kSplat) return;
   __syncthreads();
 
   // strict interior 26-neighbour peaks; everything else is -inf
@@ -112,7 +140,9 @@ hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
       if (peak) p = h;
     }
     pk[b] = p;
+    if (M == kPeaks) pk_out[(size_t)c * kPatchVox + b] = p;
   }
+  if (M == kPeaks) return;
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
@@ -179,6 +209,28 @@ hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
+                 const float* __restrict__ cz, const float* __restrict__ w,
+                 const float* __restrict__ band, float* __restrict__ out, int V, int k) {
+  hist_body<kTopk>(cx, cy, cz, w, band, nullptr, nullptr, out, V, k);
+}
+
+__global__ void __launch_bounds__(kThreads)
+splat_histogram_raw_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
+                           const float* __restrict__ cz, const float* __restrict__ w,
+                           const float* __restrict__ band, float* __restrict__ hist, int V) {
+  hist_body<kSplat>(cx, cy, cz, w, band, hist, nullptr, nullptr, V, 0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+smooth_histogram_peaks_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
+                              const float* __restrict__ cz, const float* __restrict__ w,
+                              const float* __restrict__ band, float* __restrict__ hist,
+                              float* __restrict__ pk, int V) {
+  hist_body<kPeaks>(cx, cy, cz, w, band, hist, pk, nullptr, V, 0);
+}
+
 }  // namespace
 
 extern "C" int sift3d_hist_topk(const float* cx, const float* cy, const float* cz,
@@ -186,4 +238,18 @@ extern "C" int sift3d_hist_topk(const float* cx, const float* cy, const float* c
                                 int k, int device, void* stream) {
   SIFT3D_LAUNCH(device, hist_topk_kernel, dim3(C), dim3(kThreads), stream, cx, cy, cz, w, band,
                 out, V, k);
+}
+
+extern "C" int sift3d_splat_histogram_raw(const float* cx, const float* cy, const float* cz,
+                                          const float* w, const float* band, float* hist, int C,
+                                          int V, int device, void* stream) {
+  SIFT3D_LAUNCH(device, splat_histogram_raw_kernel, dim3(C), dim3(kThreads), stream, cx, cy, cz,
+                w, band, hist, V);
+}
+
+extern "C" int sift3d_smooth_histogram_peaks(const float* cx, const float* cy, const float* cz,
+                                             const float* w, const float* band, float* hist,
+                                             float* pk, int C, int V, int device, void* stream) {
+  SIFT3D_LAUNCH(device, smooth_histogram_peaks_kernel, dim3(C), dim3(kThreads), stream, cx, cy,
+                cz, w, band, hist, pk, V);
 }

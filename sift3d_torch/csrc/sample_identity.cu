@@ -4,7 +4,11 @@
 // sample_patches_identity_slab (_id_slab_kernel). Per row r: the patch at
 // centre + k * (2 * scale / 5), k = -5..5 per axis, read from Gaussian level
 // lvl[r] with separable 2-tap linear taps (0.5-voxel centres, saturating at
-// the volume border: the _interp_coord rule).
+// the volume border: the _interp_coord rule). The volume may be a Z slab of
+// a deeper one (the Z-sharded path): z0 is the global index of its first
+// plane and depth the global Z. Coordinates clamp and interpolate in global
+// terms; only the integer plane index is moved into the slab (and clamped
+// to it, so an out-of-slab read can never leave the tensor).
 //
 // What bounds it on an H100: gather latency and bytes. Each output reads 8
 // floats at data-dependent addresses; the 11 x 11 x 11 taps of a row share
@@ -25,7 +29,8 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 sample_identity_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
                        const float* __restrict__ centers, const float* __restrict__ scales,
-                       float* __restrict__ out, int L, int Z, int Y, int X) {
+                       float* __restrict__ out, int L, int Z, int Y, int X, int z0,
+                       int depth) {
   using namespace sift3d;
   __shared__ int idx[3][kPatchDim];
   __shared__ float wt[3][kPatchDim];
@@ -41,8 +46,10 @@ sample_identity_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
     const int k = threadIdx.x % kPatchDim;
     const float fac = 2.0f * scales[r] / 5.0f;
     const float u = centers[r * 3 + a] + (float)(k - kPatchRad) * fac;
-    const int dim = a == 0 ? X : (a == 1 ? Y : Z);
-    interp_coord(u, dim, idx[a][k], wt[a][k]);
+    const int dim = a == 0 ? X : (a == 1 ? Y : depth);
+    int i;
+    interp_coord(u, dim, i, wt[a][k]);
+    idx[a][k] = a == 2 ? min(max(i - z0, 0), Z - 2) : i;
   }
   __syncthreads();
   const size_t sz = (size_t)Y * X;
@@ -67,7 +74,8 @@ sample_identity_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
 
 extern "C" int sift3d_sample_identity(const float* g, const int* lvl, const float* centers,
                                       const float* scales, float* out, int R, int L, int Z,
-                                      int Y, int X, int device, void* stream) {
+                                      int Y, int X, int z0, int depth, int device,
+                                      void* stream) {
   SIFT3D_LAUNCH(device, sample_identity_kernel, dim3(R), dim3(kThreads), stream, g, lvl,
-                centers, scales, out, L, Z, Y, X);
+                centers, scales, out, L, Z, Y, X, z0, depth);
 }

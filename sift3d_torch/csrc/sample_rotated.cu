@@ -7,7 +7,11 @@
 // centre + ori^-1 k * (2 * scale / 5); the value is trilinear from Gaussian
 // level lvl[r] with the _interp_coord saturation, and points with x outside
 // [0, X) read 0 (reference quirk 4, patch.py:12-18). These are the boxless
-// semantics of sample_patches_leveled: no scale bound, unlike a box.
+// semantics of sample_patches_leveled: no scale bound, unlike a box. The
+// volume may be a Z slab of a deeper one (the Z-sharded path): z0 is the
+// global index of its first plane and depth the global Z; coordinates clamp
+// and interpolate in global terms and only the integer plane index moves
+// into the slab (clamped to it, so no read leaves the tensor).
 //
 // What bounds it on an H100: gather latency. 8 reads per output at
 // rotated, data-dependent addresses; a row's 1331 points span at most a
@@ -29,7 +33,7 @@ __global__ void __launch_bounds__(kThreads)
 sample_rotated_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
                       const float* __restrict__ centers, const float* __restrict__ scales,
                       const float* __restrict__ oris, float* __restrict__ out, int L, int Z,
-                      int Y, int X) {
+                      int Y, int X, int z0, int depth) {
   using namespace sift3d;
   __shared__ float inv[9];
   const int r = blockIdx.x;
@@ -74,7 +78,8 @@ sample_rotated_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
     float wx, wy, wz;
     interp_coord(x, X, ix, wx);
     interp_coord(y, Y, iy, wy);
-    interp_coord(z, Z, iz, wz);
+    interp_coord(z, depth, iz, wz);
+    iz = min(max(iz - z0, 0), Z - 2);
     const float* p = gl + (size_t)iz * sz + (size_t)iy * X + ix;
     const float a00 = wz * p[0] + (1.0f - wz) * p[sz];
     const float a01 = wz * p[1] + (1.0f - wz) * p[sz + 1];
@@ -91,7 +96,8 @@ sample_rotated_kernel(const float* __restrict__ g, const int* __restrict__ lvl,
 
 extern "C" int sift3d_sample_rotated(const float* g, const int* lvl, const float* centers,
                                      const float* scales, const float* oris, float* out, int R,
-                                     int L, int Z, int Y, int X, int device, void* stream) {
+                                     int L, int Z, int Y, int X, int z0, int depth, int device,
+                                     void* stream) {
   SIFT3D_LAUNCH(device, sample_rotated_kernel, dim3(R), dim3(kThreads), stream, g, lvl,
-                centers, scales, oris, out, L, Z, Y, X);
+                centers, scales, oris, out, L, Z, Y, X, z0, depth);
 }

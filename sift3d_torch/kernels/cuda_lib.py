@@ -44,12 +44,19 @@ _I = ctypes.c_int
 SIGNATURES = {
     # g [6,Z,Y,X] f32, dogs [5,Z,Y,X] f32, mask [3,Z,Y,X] i8, Z, Y, X
     "sift3d_dogs_extrema": (_P, _P, _P, _I, _I, _I),
-    # gstack [L,Z,Y,X], lvl [R] i32, centers [R,3], scales [R], out [R,1331], R, L, Z, Y, X
-    "sift3d_sample_identity": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # dogs [B,5,Z,Y,X] f32, mask [B,3,Z,Y,X] i8, B, Z, Y, X
+    "sift3d_extrema_mask": (_P, _P, _I, _I, _I, _I),
+    # gstack [L,Z,Y,X], lvl [R] i32, centers [R,3], scales [R], out [R,1331], R, L, Z, Y, X,
+    # z0 (global index of plane 0), depth (global Z)
+    "sift3d_sample_identity": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # cx, cy, cz, w [C,V], band [11,11], out [C,k,16], C, V, k
     "sift3d_hist_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
-    # gstack, lvl, centers, scales, oris [R,3,3], out [R,1331], R, L, Z, Y, X
-    "sift3d_sample_rotated": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # cx, cy, cz, w [C,V], band [11,11] (identity), hist [C,1331], C, V
+    "sift3d_splat_histogram_raw": (_P, _P, _P, _P, _P, _P, _I, _I),
+    # cx, cy, cz, w [C,V], band [11,11], hist [C,1331], pk [C,1331], C, V
+    "sift3d_smooth_histogram_peaks": (_P, _P, _P, _P, _P, _P, _P, _I, _I),
+    # gstack, lvl, centers, scales, oris [R,3,3], out [R,1331], R, L, Z, Y, X, z0, depth
+    "sift3d_sample_rotated": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # in [B,Z,Y,X] f32, out [B,Z,Y,X] f32, taps [2r+1], r, B, Z, Y, X
     "sift3d_blur3d": (_P, _P, _P, _I, _I, _I, _I, _I),
 }

@@ -1,10 +1,13 @@
-"""K1: fused DoG + strict 80-neighbour extrema (CUDA kernel + plain form).
+"""K1 and K6: strict 80-neighbour extrema masks (CUDA kernels + plain forms).
 
-Replaces the Pallas kernel ``sift3d.kernels.extrema_pallas.
-dogs_extrema_pallas``; the CUDA source is ``csrc/dogs_extrema.cu``.
-:func:`dogs_extrema` runs the plain PyTorch version for a CPU tensor and
-the kernel for a CUDA tensor. The two are bit-identical: the subtraction
-is exact and every comparison strict.
+K1 :func:`dogs_extrema` replaces the Pallas kernel ``sift3d.kernels.
+extrema_pallas.dogs_extrema_pallas``: DoGs of a Gaussian stack and their
+mask, fused. K6 :func:`extrema_mask` replaces ``extrema_mask_pallas``: the
+mask of precomputed DoGs, which is what the Z-sharded path runs on each
+shard's one-plane-halo DoG slab. Both are entries of ``csrc/
+dogs_extrema.cu``. Each runs the plain PyTorch version for a CPU tensor
+and the kernel for a CUDA tensor; the two are bit-identical, since the
+subtraction is exact and every comparison strict.
 """
 
 from __future__ import annotations
@@ -12,14 +15,14 @@ from __future__ import annotations
 import torch
 
 from sift3d_torch.kernels import cuda_lib
-from sift3d_torch.kernels.extrema import extrema_mask
+from sift3d_torch.kernels import extrema as plain
 
 
 def dogs_extrema_plain(gstack: torch.Tensor):
     """[6, Z, Y, X] Gaussian stack -> (dogs [5, Z, Y, X] f32, mask
     [3, Z, Y, X] int8)."""
     dogs = gstack[:-1] - gstack[1:]
-    return dogs, extrema_mask(dogs)
+    return dogs, plain.extrema_mask(dogs)
 
 
 def dogs_extrema(gstack: torch.Tensor):
@@ -37,4 +40,33 @@ def dogs_extrema(gstack: torch.Tensor):
     return dogs, mask
 
 
+def extrema_mask_plain(dogs: torch.Tensor) -> torch.Tensor:
+    """[5, Z, Y, X] or [B, 5, Z, Y, X] DoGs -> [3, Z, Y, X] / [B, 3, Z, Y,
+    X] int8 (``extrema.extrema_mask``, a batch by a loop)."""
+    if dogs.ndim == 5:
+        return torch.stack([plain.extrema_mask(d) for d in dogs])
+    return plain.extrema_mask(dogs)
+
+
+def extrema_mask(dogs: torch.Tensor) -> torch.Tensor:
+    """K6: the extrema mask of 5 precomputed DoG levels, one volume or a
+    batch (see extrema_mask_plain)."""
+    if cuda_lib.route(dogs) == "plain":
+        return extrema_mask_plain(dogs)
+    if dogs.ndim not in (4, 5):
+        raise ValueError(f"expected [5, Z, Y, X] or [B, 5, Z, Y, X] DoGs, got {tuple(dogs.shape)}")
+    cuda_lib.require_cuda(dogs, "dogs", torch.float32, dogs.ndim)
+    batch = dogs if dogs.ndim == 5 else dogs[None]
+    b, nl, z, y, x = batch.shape
+    if nl != 5:
+        raise ValueError(f"dogs must hold 5 levels, got {tuple(dogs.shape)}")
+    mask = torch.empty((b, 3, z, y, x), dtype=torch.int8, device=dogs.device)
+    if mask.numel() == 0:
+        return mask if dogs.ndim == 5 else mask[0]
+    cuda_lib.launch("sift3d_extrema_mask", batch, mask, b, z, y, x, device=dogs.device)
+    extrema_mask.launches += 1
+    return mask if dogs.ndim == 5 else mask[0]
+
+
 dogs_extrema.launches = 0
+extrema_mask.launches = 0

@@ -1,24 +1,39 @@
-"""K3: blurred orientation histogram -> top-k strict peaks (CUDA kernel +
-plain form).
+"""K3, K8 and K9: orientation histograms (CUDA kernels + plain forms).
 
-Replaces the Pallas kernel ``sift3d.kernels.hist_pallas.
-smooth_histogram_topk``; the CUDA source is ``csrc/hist_topk.cu``. The
-output layout is the Pallas kernel's, so one consumer
+K3 :func:`hist_topk` replaces the Pallas kernel ``sift3d.kernels.
+hist_pallas.smooth_histogram_topk``: the blurred histogram's top-k strict
+peaks, the main path's. K8 :func:`splat_histogram_raw` replaces
+``splat_histogram_raw`` (the unblurred trilinear splat) and K9
+:func:`smooth_histogram_peaks` replaces ``smooth_histogram_peaks`` (the
+blurred histogram and its strict-peak plane); neither has a caller on the
+main path, as in the JAX package. All three are entries of
+``csrc/hist_topk.cu``, one body that stops at the splat (K8), at the peak
+plane (K9) or after the top-k (K3). :func:`smooth_histogram`, K8 followed
+by the blur (K7), is the counterpart of ``features._smooth_histogram``.
+
+K3's output layout is the Pallas kernel's, so one consumer
 (``sift3d_torch.pipeline.features.hist_tops``) serves both versions:
 [C, k, 16] f32 with lane 0 the peak value (-inf = no peak), lanes 1-6 the
 blurred histogram at x-1, x+1, y-1, y+1, z-1, z+1 and lane 7 the flat
-position (z * 11 + y) * 16 + x. An empty slot sits at (1, 1, 1).
+position (z * 11 + y) * 16 + x. An empty slot sits at (1, 1, 1). K8 and K9
+write [C, 11, 11, 11]: the Pallas kernels' padded [C, 128, 16] layout is a
+TPU tiling artifact.
 
-Points come at bin coordinates (bin i's centre at i), where the Pallas
-kernel takes them + 0.5: the compiled JAX package folds that + 0.5 and the
-interpolation's - 0.5 away, and only the folded form rounds as it does.
+K3 and the ``*_bins`` entries take points at bin coordinates (bin i's
+centre at i): the compiled JAX package folds the Pallas kernels' + 0.5 and
+the interpolation's - 0.5 away, and only the folded form rounds as it
+does. :func:`splat_histogram_raw`, :func:`smooth_histogram_peaks` and
+:func:`smooth_histogram` take the JAX functions' 0.5-centred coordinates
+and subtract 0.5 first, as ``hist_pallas._interp_coord_11`` does.
 
-The plain version sums the histogram in the kernel's order (fused
+The plain versions sum the histogram in the kernel's order (fused
 multiply-adds over 128-point chunks, chunk sums added), which is also the
 JAX package's CPU order, so all three agree to the bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,6 +41,7 @@ import torch
 from sift3d_torch.core.numerics import fma
 from sift3d_torch.kernels import cuda_lib
 from sift3d_torch.kernels.gauss import band_from_taps
+from sift3d_torch.kernels.gauss_cuda import blur3d
 from sift3d_torch.kernels.patch import PATCH_DIM, local_peaks_3d
 from sift3d_torch.kernels.resample import interp_bin
 
@@ -39,9 +55,10 @@ def hist_band(taps) -> np.ndarray:
     return band_from_taps(np.asarray(taps, np.float32), PATCH_DIM)
 
 
-def hist_topk_plain(cx, cy, cz, w, band, k: int) -> torch.Tensor:
+def splat_blur_plain(cx, cy, cz, w, band) -> torch.Tensor:
     """cx, cy, cz, w: [C, V] f32 splat bin coordinates (bin i's centre at
-    i) and weights; band [11, 11] f32 -> [C, k, 16] top-k peak rows."""
+    i) and weights; band [11, 11] f32 -> the [C, 11, 11, 11] splat blurred
+    by the band (the identity band: the raw splat)."""
     c, v_total = cx.shape
 
     def factors(u):
@@ -59,8 +76,18 @@ def hist_topk_plain(cx, cy, cz, w, band, k: int) -> torch.Tensor:
             inplane = fy[:, v, None, :, None] * fx[:, v, None, None, :]
             part = fma(fz[:, v, :, None, None].expand_as(part), inplane.expand_as(part), part)
         hist = hist + part
+    return hist
 
-    pk = torch.where(local_peaks_3d(hist), hist, torch.full_like(hist, -torch.inf))
+
+def peak_plane(hist: torch.Tensor) -> torch.Tensor:
+    """hist where a strict interior 26-neighbour peak, -inf elsewhere."""
+    return torch.where(local_peaks_3d(hist), hist, torch.full_like(hist, -torch.inf))
+
+
+def peak_rows(hist: torch.Tensor, pk: torch.Tensor, k: int) -> torch.Tensor:
+    """K3's [C, k, 16] rows from a histogram and its peak plane: the k
+    largest peaks, the lowest flat index first on ties."""
+    c = hist.shape[0]
     vals, idx = torch.sort(pk.reshape(c, -1), dim=1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k]
     valid = vals > -torch.inf
@@ -70,7 +97,7 @@ def hist_topk_plain(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     x = torch.where(valid, idx % PATCH_DIM, one)
     b = (z * PATCH_DIM + y) * PATCH_DIM + x
     hflat = hist.reshape(c, -1)
-    out = torch.zeros((c, k, LANES), dtype=torch.float32, device=cx.device)
+    out = torch.zeros((c, k, LANES), dtype=torch.float32, device=hist.device)
     out[..., 0] = vals
     for lane, off in enumerate((-1, 1, -PATCH_DIM, PATCH_DIM, -PATCH_DIM**2, PATCH_DIM**2), 1):
         out[..., lane] = torch.gather(hflat, 1, b + off)
@@ -78,10 +105,14 @@ def hist_topk_plain(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     return out
 
 
-def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
-    """K3: top-k blurred-histogram peaks (see hist_topk_plain)."""
-    if cuda_lib.route(cx) == "plain":
-        return hist_topk_plain(cx, cy, cz, w, band, k)
+def hist_topk_plain(cx, cy, cz, w, band, k: int) -> torch.Tensor:
+    """cx, cy, cz, w: [C, V] f32 splat bin coordinates and weights; band
+    [11, 11] f32 -> [C, k, 16] top-k peak rows."""
+    hist = splat_blur_plain(cx, cy, cz, w, band)
+    return peak_rows(hist, peak_plane(hist), k)
+
+
+def _check_points(cx, cy, cz, w, band) -> None:
     for name, t in (("cx", cx), ("cy", cy), ("cz", cz), ("w", w)):
         cuda_lib.require_cuda(t, name, torch.float32, 2)
         if t.shape != cx.shape or t.device != cx.device:
@@ -89,6 +120,13 @@ def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     cuda_lib.require_cuda(band, "band", torch.float32, 2)
     if band.shape != (PATCH_DIM, PATCH_DIM) or band.device != cx.device:
         raise ValueError(f"band must be [11, 11] on {cx.device}")
+
+
+def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
+    """K3: top-k blurred-histogram peaks (see hist_topk_plain)."""
+    if cuda_lib.route(cx) == "plain":
+        return hist_topk_plain(cx, cy, cz, w, band, k)
+    _check_points(cx, cy, cz, w, band)
     if not 1 <= k <= PATCH_DIM**3:
         raise ValueError(f"k must be in [1, 1331], got {k}")
     c, v_total = cx.shape
@@ -102,4 +140,82 @@ def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _identity_band(device: torch.device) -> torch.Tensor:
+    return torch.eye(PATCH_DIM, dtype=torch.float32, device=device)
+
+
+def splat_histogram_raw_plain(cx, cy, cz, w) -> torch.Tensor:
+    """The raw trilinear splat [C, 11, 11, 11] of points at bin
+    coordinates: the accumulation with the identity as the band."""
+    return splat_blur_plain(cx, cy, cz, w, _identity_band(cx.device))
+
+
+def smooth_histogram_peaks_plain(cx, cy, cz, w, band):
+    """(blurred histogram, peak plane) of points at bin coordinates."""
+    hist = splat_blur_plain(cx, cy, cz, w, band)
+    return hist, peak_plane(hist)
+
+
+def splat_histogram_raw_bins(cx, cy, cz, w) -> torch.Tensor:
+    """K8 at bin coordinates (see splat_histogram_raw_plain): K3's
+    accumulation with the identity as the band."""
+    if cuda_lib.route(cx) == "plain":
+        return splat_histogram_raw_plain(cx, cy, cz, w)
+    band = _identity_band(cx.device)
+    _check_points(cx, cy, cz, w, band)
+    c, v_total = cx.shape
+    hist = torch.empty((c, PATCH_DIM, PATCH_DIM, PATCH_DIM), dtype=torch.float32, device=cx.device)
+    if c == 0:
+        return hist
+    cuda_lib.launch("sift3d_splat_histogram_raw", cx, cy, cz, w, band, hist, c, v_total, device=cx.device)
+    splat_histogram_raw_bins.launches += 1
+    return hist
+
+
+def smooth_histogram_peaks_bins(cx, cy, cz, w, band):
+    """K9 at bin coordinates: (the blurred histogram, its peak plane), each
+    [C, 11, 11, 11] (see smooth_histogram_peaks_plain)."""
+    if cuda_lib.route(cx) == "plain":
+        return smooth_histogram_peaks_plain(cx, cy, cz, w, band)
+    _check_points(cx, cy, cz, w, band)
+    c, v_total = cx.shape
+    hist = torch.empty((c, PATCH_DIM, PATCH_DIM, PATCH_DIM), dtype=torch.float32, device=cx.device)
+    pk = torch.empty_like(hist)
+    if c == 0:
+        return hist, pk
+    cuda_lib.launch(
+        "sift3d_smooth_histogram_peaks", cx, cy, cz, w, band, hist, pk, c, v_total, device=cx.device
+    )
+    smooth_histogram_peaks_bins.launches += 1
+    return hist, pk
+
+
+def _bins(*coords):
+    # the 0.5-centre convention -> bin coordinates (hist_pallas._interp_coord_11)
+    return [(u - 0.5).contiguous() for u in coords]
+
+
+def splat_histogram_raw(cx, cy, cz, w) -> torch.Tensor:
+    """K8: unblurred trilinear splat histograms [C, 11, 11, 11] of [C, V]
+    points at 0.5-centred coordinates (``hist_pallas.splat_histogram_raw``)."""
+    return splat_histogram_raw_bins(*_bins(cx, cy, cz), w.contiguous())
+
+
+def smooth_histogram_peaks(cx, cy, cz, w, band):
+    """K9: (blurred histogram, strict-peak plane), each [C, 11, 11, 11], of
+    [C, V] points at 0.5-centred coordinates
+    (``hist_pallas.smooth_histogram_peaks``); band [11, 11]."""
+    return smooth_histogram_peaks_bins(*_bins(cx, cy, cz), w.contiguous(), band)
+
+
+def smooth_histogram(cx, cy, cz, w, blur_sigma: float) -> torch.Tensor:
+    """The blurred histogram [C, 11, 11, 11]: K8, then the zero-border
+    blur (K7) at blur_sigma with the histograms' 0.01 tap rule
+    (``features._smooth_histogram``, ``hist_pallas.smooth_histogram_pallas``)."""
+    return blur3d(splat_histogram_raw(cx, cy, cz, w), blur_sigma, 0.01)
+
+
 hist_topk.launches = 0
+splat_histogram_raw_bins.launches = 0
+smooth_histogram_peaks_bins.launches = 0

@@ -7,7 +7,12 @@ the large-scale tail, ``sample_patches_rotated_pallas`` (K5) in one kernel
 (``csrc/sample_rotated.cu``).
 
 Both read the full level volume with the _interp_coord rule (no boxes),
-so they carry no scale bound. Each public function runs the plain PyTorch
+so they carry no scale bound. The volume may be a Z slab of a deeper one
+(the Z-sharded path): ``z0`` is the global index of its first plane and
+``depth`` the global Z. Sample coordinates stay global, so they clamp and
+interpolate exactly as on the whole volume; only the integer plane index
+is moved into the slab, and clamped to it. (The JAX package shifts the f32
+coordinates by the slab origin instead, which moves samples by rounding.) Each public function runs the plain PyTorch
 version for CPU tensors and the kernel for CUDA tensors. The plain
 versions compute in the kernels' operation order (contract z, then y,
 then x), so the two agree to the bit on one device.
@@ -46,16 +51,25 @@ def _step(scales: torch.Tensor) -> torch.Tensor:
     return 2.0 * scales / torch.full_like(scales, float(PATCH_RAD))
 
 
-def sample_identity_plain(gstack, lvl, centers, scales) -> torch.Tensor:
-    """gstack [L, Z, Y, X] f32, lvl [R] int, centers [R, 3] (x, y, z),
-    scales [R] -> axis-aligned patches [R, 11, 11, 11] (z, y, x)."""
+def _slab_plane(z, z0: int, depth, zd: int):
+    """Global coordinates -> (plane index in a slab of zd planes starting at
+    global plane z0, weight), by the _interp_coord rule at global depth."""
+    iz, wz = interp_coord(z, zd if depth is None else depth)
+    return torch.clamp(iz - z0, 0, zd - 2), wz
+
+
+def sample_identity_plain(gstack, lvl, centers, scales, z0: int = 0, depth=None) -> torch.Tensor:
+    """gstack [L, Z, Y, X] f32 (a slab from global plane z0 of a volume
+    depth deep; depth None: the whole volume), lvl [R] int, centers [R, 3]
+    (x, y, z), scales [R] -> axis-aligned patches [R, 11, 11, 11] (z, y,
+    x)."""
     _, zd, yd, xd = gstack.shape
     fac = _step(scales)
     offs = torch.arange(-PATCH_RAD, PATCH_RAD + 1, dtype=torch.float32, device=gstack.device)
     u = centers[:, :, None] + offs[None, None, :] * fac[:, None, None]  # [R, 3, 11]
     ix, wx = interp_coord(u[:, 0], xd)
     iy, wy = interp_coord(u[:, 1], yd)
-    iz, wz = interp_coord(u[:, 2], zd)
+    iz, wz = _slab_plane(u[:, 2], z0, depth, zd)
     base = (
         lvl.to(torch.int64)[:, None, None, None] * (zd * yd * xd)
         + iz[:, :, None, None] * (yd * xd)
@@ -68,10 +82,11 @@ def sample_identity_plain(gstack, lvl, centers, scales) -> torch.Tensor:
     )
 
 
-def sample_rotated_plain(gstack, lvl, centers, scales, oris) -> torch.Tensor:
+def sample_rotated_plain(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
     """Rotated patches [R, 11, 11, 11]: grid point k maps to
     centre + ori^-1 k * (2 * scale / 5); trilinear with the _interp_coord
-    saturation; points with x outside [0, X) read 0."""
+    saturation; points with x outside [0, X) read 0. z0, depth as in
+    sample_identity_plain."""
     _, zd, yd, xd = gstack.shape
     r = centers.shape[0]
     grid = torch.from_numpy(patch_grid()).to(gstack.device)  # [V, (x, y, z)]
@@ -86,7 +101,7 @@ def sample_rotated_plain(gstack, lvl, centers, scales, oris) -> torch.Tensor:
     x, y, z = axis(0), axis(1), axis(2)
     ix, wx = interp_coord(x, xd)
     iy, wy = interp_coord(y, yd)
-    iz, wz = interp_coord(z, zd)
+    iz, wz = _slab_plane(z, z0, depth, zd)
     base = lvl.to(torch.int64)[:, None] * (zd * yd * xd) + iz * (yd * xd) + iy * xd + ix
     vals = _trilinear_zyx(gstack.reshape(-1), base, wz, wy, wx, yd * xd, xd)
     vals = torch.where((x < 0) | (x >= xd), torch.zeros_like(vals), vals)
@@ -110,29 +125,39 @@ def _check_rows(gstack, lvl, centers, scales):
     return r
 
 
-def sample_identity(gstack, lvl, centers, scales) -> torch.Tensor:
+def _slab_args(gstack, z0: int, depth):
+    zd = gstack.shape[1]
+    depth = zd if depth is None else int(depth)
+    if zd < 2 or not 0 <= z0 <= depth - zd:
+        raise ValueError(f"a slab of {zd} planes from plane {z0} does not fit a depth of {depth}")
+    return int(z0), depth
+
+
+def sample_identity(gstack, lvl, centers, scales, z0: int = 0, depth=None) -> torch.Tensor:
     """K2: identity-orientation 11^3 patches (see sample_identity_plain).
     Rows whose level is outside [0, L) come back as NaN from the kernel."""
     if cuda_lib.route(gstack) == "plain":
-        return sample_identity_plain(gstack, lvl, centers, scales)
+        return sample_identity_plain(gstack, lvl, centers, scales, z0, depth)
     r = _check_rows(gstack, lvl, centers, scales)
+    z0, depth = _slab_args(gstack, z0, depth)
     nl, zd, yd, xd = gstack.shape
     out = torch.empty((r, PATCH_DIM, PATCH_DIM, PATCH_DIM), dtype=torch.float32, device=gstack.device)
     if r == 0:
         return out
     cuda_lib.launch(
-        "sift3d_sample_identity", gstack, lvl, centers, scales, out, r, nl, zd, yd, xd,
+        "sift3d_sample_identity", gstack, lvl, centers, scales, out, r, nl, zd, yd, xd, z0, depth,
         device=gstack.device,
     )
     sample_identity.launches += 1
     return out
 
 
-def sample_rotated(gstack, lvl, centers, scales, oris) -> torch.Tensor:
+def sample_rotated(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
     """K4: rotated 11^3 patches (see sample_rotated_plain)."""
     if cuda_lib.route(gstack) == "plain":
-        return sample_rotated_plain(gstack, lvl, centers, scales, oris)
+        return sample_rotated_plain(gstack, lvl, centers, scales, oris, z0, depth)
     r = _check_rows(gstack, lvl, centers, scales)
+    z0, depth = _slab_args(gstack, z0, depth)
     cuda_lib.require_cuda(oris, "oris", torch.float32, 3)
     if oris.shape != (r, 3, 3) or oris.device != gstack.device:
         raise ValueError(f"oris must be [{r}, 3, 3] on {gstack.device}, got {tuple(oris.shape)}")
@@ -141,8 +166,8 @@ def sample_rotated(gstack, lvl, centers, scales, oris) -> torch.Tensor:
     if r == 0:
         return out
     cuda_lib.launch(
-        "sift3d_sample_rotated", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd,
-        device=gstack.device,
+        "sift3d_sample_rotated", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
+        depth, device=gstack.device,
     )
     sample_rotated.launches += 1
     return out

@@ -18,6 +18,13 @@ exist for XLA's static shapes and are dropped). The reference call stack
 
 The samplers (K2, K4) and the histogram top-k (K3) are CUDA kernels on a
 CUDA device and their plain versions on the CPU.
+
+The stage also runs on a Z slab of an octave (the Z-sharded path,
+``sift3d_torch.dist.spatial``): the Gaussian stack and the DoGs may each
+start at a global plane (gz0, dz0) of an octave `depth` planes deep, the
+candidates carry global z, and every coordinate stays global, so a slab
+gives the rows the whole octave gives (the JAX package's z_bounds /
+gz_shift / g_dims, features.py:314-400, 806-920, in global terms).
 """
 
 from __future__ import annotations
@@ -62,44 +69,49 @@ def candidate_table(mask: torch.Tensor):
     return nz[:, 0] + 1, nz[:, 1:4], sign
 
 
-def gather_stage(gstack, dogs, lvl, zyx, sigmas: Sequence[float]):
+def gather_stage(gstack, dogs, lvl, zyx, sigmas: Sequence[float], *, gz0: int = 0, dz0: int = 0,
+                 depth=None):
     """Refine candidates and sample their identity-orientation patches.
 
-    gstack [6, Z, Y, X] / dogs [5, Z, Y, X] of one octave; lvl [C] DoG level
-    1..3; zyx [C, 3] voxel coords. Returns (xyz [C, 3] (x, y, z, +0.5
-    shifted), scale [C], in_bounds [C], patches [C, 11, 11, 11]) as
+    gstack [6, Z, Y, X] / dogs [5, Z, Y, X] of one octave, or Z slabs of
+    it starting at global planes gz0 / dz0 of an octave `depth` planes deep
+    (None: the DoGs' own depth); lvl [C] DoG level 1..3; zyx [C, 3] global
+    voxel coords. Returns (xyz [C, 3] (x, y, z, +0.5 shifted), scale [C],
+    in_bounds [C], patches [C, 11, 11, 11]) as
     ``features.gather_stage_union`` (features.py:315-410) for one volume.
     """
     zd, yd, xd = dogs.shape[1:]
+    depth = zd if depth is None else depth
     f32 = torch.float32
     z, y, x = zyx[:, 0], zyx[:, 1], zyx[:, 2]
-    d_c = dogs[lvl, z, y, x]
+    zl = z - dz0  # plane index in the DoG slab; the abscissae stay global
+    d_c = dogs[lvl, zl, y, x]
     # spatial refinement: per-axis independent quadratic on the centre level
     fx = quadratic_interp_1d(
-        dogs[lvl, z, y, x - 1], d_c, dogs[lvl, z, y, x + 1],
+        dogs[lvl, zl, y, x - 1], d_c, dogs[lvl, zl, y, x + 1],
         (x - 1).to(f32), x.to(f32), (x + 1).to(f32),
     )
     fy = quadratic_interp_1d(
-        dogs[lvl, z, y - 1, x], d_c, dogs[lvl, z, y + 1, x],
+        dogs[lvl, zl, y - 1, x], d_c, dogs[lvl, zl, y + 1, x],
         (y - 1).to(f32), y.to(f32), (y + 1).to(f32),
     )
     fz = quadratic_interp_1d(
-        dogs[lvl, z - 1, y, x], d_c, dogs[lvl, z + 1, y, x],
+        dogs[lvl, zl - 1, y, x], d_c, dogs[lvl, zl + 1, y, x],
         (z - 1).to(f32), z.to(f32), (z + 1).to(f32),
     )
     # scale refinement across DoG levels at the integer voxel, x2
     # (generateFeatures3D_efficient, MultiScale.cpp:1376-1381)
     sig = torch.tensor(list(sigmas), dtype=f32, device=dogs.device)
     scale = 2.0 * quadratic_interp_1d(
-        dogs[lvl - 1, z, y, x], d_c, dogs[lvl + 1, z, y, x], sig[lvl - 1], sig[lvl], sig[lvl + 1]
+        dogs[lvl - 1, zl, y, x], d_c, dogs[lvl + 1, zl, y, x], sig[lvl - 1], sig[lvl], sig[lvl + 1]
     )
     # subpixel centre shift (MultiScale.cpp:1384-1386)
     xyz = torch.stack([fx + 0.5, fy + 0.5, fz + 0.5], dim=-1)
     # bounds test (sampleImage3D, MultiScale.cpp:2630-2643)
     rad_max = torch.floor(2.0 * scale + 2.0)[:, None]
-    hi = torch.tensor([xd, yd, zd], dtype=f32, device=dogs.device)
+    hi = torch.tensor([xd, yd, depth], dtype=f32, device=dogs.device)
     in_bounds = ((xyz - rad_max >= 0.0) & (xyz + rad_max < hi)).all(dim=-1)
-    patches = sample_identity(gstack, lvl.to(torch.int32), xyz, scale)
+    patches = sample_identity(gstack, lvl.to(torch.int32), xyz, scale, gz0, depth)
     return xyz, scale, in_bounds, patches
 
 
@@ -285,20 +297,35 @@ def emit_octave(
     gstack, dogs, mask, cfg: SiftConfig, sigmas: Sequence[float], timer, descriptor: str = "goh",
 ):
     """Every feature row of one octave, in reference push order, with
-    `descriptor` ("goh", "brief", "rrief" or "nrrief") descriptors.
+    `descriptor` ("goh", "brief", "rrief" or "nrrief") descriptors: the
+    candidates of `mask`, then :func:`emit_candidates`."""
+    with timer.stage("candidates"):
+        cands = candidate_table(mask)
+    return emit_candidates(gstack, dogs, cands, cfg, sigmas, timer, descriptor)
+
+
+def emit_candidates(
+    gstack, dogs, cands, cfg: SiftConfig, sigmas: Sequence[float], timer, descriptor: str = "goh",
+    *, rank=None, gz0: int = 0, dz0: int = 0, depth=None,
+):
+    """Every feature row of a candidate table (lvl, zyx, sign) of one
+    octave. gstack, dogs, gz0, dz0, depth as in :func:`gather_stage`;
+    rank [N]: each candidate's place in the octave's reference order (None:
+    its index in the table).
 
     For each surviving candidate: its unoriented row (ori = structure-tensor
-    eigenvectors) with order key cand * (1 + S), then its reoriented copies
-    with keys cand * (1 + S) + slot + 1, S = K1 * K2 (features.py:742-865).
-    Returns None when the octave has no survivor, else a dict of tensors in
-    octave-local geometry: xyz, scale, eigs, ori, info, desc (uint8), key.
+    eigenvectors) with order key rank * (1 + S), then its reoriented copies
+    with keys rank * (1 + S) + slot + 1, S = K1 * K2 (features.py:742-865).
+    Returns None when no candidate survives, else a dict of tensors in
+    octave geometry: xyz, scale, eigs, ori, info, desc (uint8), key.
     """
-    with timer.stage("candidates"):
-        lvl, zyx, sign = candidate_table(mask)
+    lvl, zyx, sign = cands
     if lvl.shape[0] == 0:
         return None
     with timer.stage("gather_eig"):
-        xyz, scale, in_bounds, patches = gather_stage(gstack, dogs, lvl, zyx, sigmas)
+        xyz, scale, in_bounds, patches = gather_stage(
+            gstack, dogs, lvl, zyx, sigmas, gz0=gz0, dz0=dz0, depth=depth
+        )
         pn, eigs, eig_ori, eig_keep = eig_stage(patches, cfg)
         kidx = torch.nonzero(in_bounds & eig_keep)[:, 0]
     if kidx.shape[0] == 0:
@@ -311,13 +338,16 @@ def emit_octave(
     s = cfg.max_primary_orientations * cfg.max_secondary_orientations
     ori_r = o["ori"].reshape(-1, s, 3, 3)[row, slot]
     with timer.stage("rotated_patches"):
-        patches_r = sample_rotated(gstack, lvl[row].to(torch.int32), xyz[row], scale[row], ori_r)
+        patches_r = sample_rotated(
+            gstack, lvl[row].to(torch.int32), xyz[row], scale[row], ori_r, gz0, depth
+        )
     with timer.stage("descriptors"):
         desc = torch.cat([
             descriptor_stage(p, descriptor, cfg.brief_method, cfg.brief_blur_sigma)
             for p in (pn, patches_r)
         ])
     info_u = torch.where(sign > 0, INFO_FLAG_MIN0MAX1, 0).to(torch.int64)
+    order = kidx if rank is None else rank[kidx]
     return dict(
         xyz=torch.cat([xyz, xyz[row]]),
         scale=torch.cat([scale, scale[row]]),
@@ -325,5 +355,5 @@ def emit_octave(
         ori=torch.cat([eig_ori, ori_r]),
         info=torch.cat([info_u, info_u[row] | INFO_FLAG_REORIENT]),
         desc=desc,
-        key=torch.cat([kidx * (1 + s), kidx[row] * (1 + s) + slot + 1]),
+        key=torch.cat([order * (1 + s), order[row] * (1 + s) + slot + 1]),
     )

@@ -76,7 +76,7 @@ def _jax_octaves(vol):
 def test_extract_matches_jax_on_48_cells(cell, monkeypatch):
     vol = CELLS_48[cell]()
     want = jx_extract(vol, JxConfig())
-    own = extract_features(vol)
+    own = extract_features(vol, device="cpu")
     rep_own = (repeatability(own, want)[0], repeatability(want, own)[0])
     print(f"{cell}: own pyramid: jax {len(want)} features, port {len(own)}, repeatability {rep_own}")
     if cell != "blob48_single":  # its exact ties flip on ulp-level pyramid differences
@@ -86,7 +86,7 @@ def test_extract_matches_jax_on_48_cells(cell, monkeypatch):
     octaves = iter(_jax_octaves(vol))
     monkeypatch.setattr(tx_pyramid, "initial_blur_core", lambda img, cfg, initial_image_scale=1.0: img)
     monkeypatch.setattr(tx_pyramid, "octave_core", lambda base, cfg: (*next(octaves), base))
-    got = extract_features(vol)
+    got = extract_features(vol, device="cpu")
     desc_eq = (got.desc == want.desc).all(axis=1).mean() if len(got) == len(want) else 0.0
     print(f"{cell}: jax pyramid: port {len(got)} features, identical descriptors {desc_eq:.4f}")
     assert len(got) == len(want) > 0
@@ -119,7 +119,7 @@ def test_blur_order_witness(dim):
 
 def test_extract_finds_the_blob_centre():
     """test_pipeline_e2e's single-blob check, on the port."""
-    feats = extract_features(_blob_volume())
+    feats = extract_features(_blob_volume(), device="cpu")
     peaks = feats.select(feats.is_peak & ~feats.is_reoriented)
     d = np.linalg.norm(peaks.xyz - np.array([24.5, 24.5, 24.5]), axis=1)
     assert d.min() < 1.5

@@ -47,7 +47,7 @@ EXACT_CELLS = {
 def test_extract_matches_jax_exactly(cell):
     vol = EXACT_CELLS[cell]()
     want = jx_extract(vol, JxConfig())
-    got = extract_features(vol)
+    got = extract_features(vol, device="cpu")
     assert len(got) == len(want) > 0
     assert repeatability(got, want)[0] == 1.0 and repeatability(want, got)[0] == 1.0
     np.testing.assert_allclose(got.xyz, want.xyz, rtol=0, atol=1e-4)
@@ -60,7 +60,7 @@ def test_extract_matches_jax_exactly(cell):
     # 64^3 box's scale bound; no emitted row reaches it at these sizes
     over = sum(
         int((((rows["info"] & INFO_FLAG_REORIENT) != 0) & (rows["scale"] > rbox_max_scale(64))).sum())
-        for _, rows in extract_octaves(vol)
+        for _, rows in extract_octaves(vol, device="cpu")
     )
     print(f"{cell}: {len(got)} features, reoriented rows above scale 8.80: {over}")
     assert over == 0
@@ -92,7 +92,7 @@ def test_cli_key_files_match(tmp_path):
 def test_key_writer_matches_jax_bytes(tmp_path, eig_threshold):
     """The port's .key writer and the JAX package's (its C++ fast path and
     its Python writer) write the same bytes for the same FeatureSet."""
-    feats = extract_features(synthetic_volume(48, seed=7))
+    feats = extract_features(synthetic_volume(48, seed=7), device="cpu")
     comments = ["Extraction Voxel Resolution (ijk) : 48 48 48", "a comment"]
     keyfile.write_text(feats, str(tmp_path / "port.key"), eig_threshold, comments)
     for native in (True, False):
@@ -105,12 +105,15 @@ def test_key_writer_matches_jax_bytes(tmp_path, eig_threshold):
 
 
 @pytest.mark.parametrize("flag, message", [
-    ("--spatial", "ROADMAP"), ("--spatial=4", "ROADMAP"), ("--spatial-octaves=2", "ROADMAP"),
+    ("--spatial=x", "unknown command line argument"),
+    ("--spatial-octaves", "unknown command line argument"),
+    ("--spatial-octaves=two", "unknown command line argument"),
     ("-s", "unknown command line argument"), ("-x", "unknown command line argument"),
 ])
 def test_cli_refuses_flags_outside_the_slice(tmp_path, capsys, flag, message):
-    """Only --spatial (several devices) is not ported; an unknown flag is
-    refused as the JAX CLI refuses it."""
+    """Every flag of the JAX CLI is ported (--spatial with it); a malformed
+    --spatial flag or an unknown flag is refused as the JAX CLI refuses an
+    unknown one."""
     assert tx_cli.main([flag, "in.nii", str(tmp_path / "out.key")]) == -1
     assert message in capsys.readouterr().out
 

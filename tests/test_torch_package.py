@@ -45,6 +45,7 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the package's own sources; _build/ holds build outputs, not sources
     files = sorted(f for f in PACKAGE.rglob("*.py") if cuda_lib.BUILD_DIR not in f.parents)
     assert len(files) > 10
+    assert {"mesh.py", "halo.py", "spatial.py"} <= {f.name for f in files if f.parent.name == "dist"}
     bad = {
         str(f.relative_to(PACKAGE)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
     }
@@ -59,6 +60,12 @@ def test_cuda_sources_exist(source):
     # each entry point is a plain C function returning cudaGetLastError()
     assert 'extern "C" int sift3d_' in text
     assert "Replaces the Pallas kernel" in text
+
+
+@pytest.mark.parametrize("entry", sorted(cuda_lib.SIGNATURES))
+def test_every_c_entry_has_its_source(entry):
+    text = "".join(src.read_text() for src in cuda_lib.sources())
+    assert f'extern "C" int {entry}(' in text
 
 
 def _inputs(rng):
@@ -87,7 +94,18 @@ def _calls(gs, lvl, centers, scales, oris, hist, band):
             patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain,
             (gs, lvl, centers, scales, oris),
         ),
+        "extrema_mask": (extrema_cuda.extrema_mask, extrema_cuda.extrema_mask_plain, (gs[1:],)),
+        "extrema_mask_batch": (
+            extrema_cuda.extrema_mask, extrema_cuda.extrema_mask_plain,
+            (torch.stack([gs[1:], gs[:-1]]),),
+        ),
         "hist_topk": (hist_cuda.hist_topk, hist_cuda.hist_topk_plain, (*hist, band, 6)),
+        "splat_histogram_raw": (
+            hist_cuda.splat_histogram_raw_bins, hist_cuda.splat_histogram_raw_plain, tuple(hist),
+        ),
+        "smooth_histogram_peaks": (
+            hist_cuda.smooth_histogram_peaks_bins, hist_cuda.smooth_histogram_peaks_plain, (*hist, band),
+        ),
         # one volume at the widest pyramid radius, and a batch at BRIEF's
         "blur3d": (gauss_cuda.blur3d, gauss.blur3d, (gs[0], 3.0897, 0.01)),
         "blur3d_batch": (gauss_cuda.blur3d, gauss.blur3d, (gs, 0.95, 0.01)),
