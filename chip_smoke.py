@@ -5,7 +5,9 @@
 
 Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
-     and the seconds the hand-written kernels took to build (nvcc, sm_90a);
+     the seconds the hand-written kernels took to build (nvcc, sm_90a), and
+     the registers, shared memory and spills of K7's and K3/K8/K9's
+     kernels from the build's nvcc.log;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
@@ -16,10 +18,19 @@ Phases, each printing one line:
      DoG slab, and K2, K3 and K4 on the rows each of those octaves produces
      (T1's tiled to 4096), K8 and K9 on T1's primary-histogram rows, whose
      K9 top-k must equal K3 — with the max abs difference, the tolerance,
-     median milliseconds of both, the bound (the least time the card could
-     take: bytes over 3.35 TB/s or f32 FLOPs over 67 TFLOP/s, whichever is
-     larger) and, where one PyTorch call computes the same function, that
-     call's milliseconds;
+     median milliseconds of both (one call between two CUDA events, and
+     a call's share of a burst of 20, which leaves out the host's launch
+     gap), the bound (the least time the card could take: bytes over 3.35
+     TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger) and, where one
+     PyTorch call computes the same function, that call's milliseconds; K7
+     also with its launch geometry, its GB/s and the times of other
+     geometries on the T1 and -2+ grids and (xy + z against the
+     small-volume kernel) on the BRIEF batch; then edge shapes, each exact:
+     K7 on volumes thinner than 2r + 1 along z, y and x, a 37x75x61 volume,
+     a batch of three 91x109x91 volumes and every radius 1..8 (against the
+     plain blur on the CPU), on the deepest T1 octave (5x6x5, against the
+     fma chain in numpy), K3, K8 and K9 on rows with V in {1, 127, 128,
+     129, 485}, a zero-weight row and two tied peaks;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
      kernel's launch count in that run (each must be > 0); then K8's and
@@ -72,9 +83,11 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +122,25 @@ def median_ms(fn, reps: int = REPS) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def burst_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device milliseconds a call of fn() in a burst of n back-to-back calls
+    (median of reps bursts, CUDA events around each): the device time
+    without the host's launch gap that a single timed call includes."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -234,6 +266,198 @@ def conv3d_call(vol, sigma, min_value):
     return lambda: torch.nn.functional.conv3d(inp, weight, padding=r)
 
 
+def blur_rate(x, sigma, min_value) -> str:
+    """K7's launch for x, its median ms and the achieved GB/s (each voxel
+    read once and written once)."""
+    from sift3d_torch.kernels import gauss_cuda
+
+    shape = (1, *x.shape) if x.ndim == 3 else tuple(x.shape)
+    r = gauss_cuda.host_taps(float(sigma), float(min_value)).shape[0] // 2
+    g = gauss_cuda.blur_launch_geometry(shape, r, gauss_cuda.sm_count(x.device))
+    ms = median_ms(lambda: gauss_cuda.blur3d(x, sigma, min_value))
+    return f"r {r}, launch {json.dumps(g)}; kernel {ms!r} ms, {8 * x.numel() / ms / 1e6!r} GB/s"
+
+
+def fma_f32(a, b, c):
+    """The f32 fma of f32 numpy arrays, rounded once: the f64 product is
+    exact, and a two-sum's error term settles the f64 sums that fall on a
+    midpoint between two f32 values."""
+    import numpy as np
+
+    p, c64 = a.astype(np.float64) * b.astype(np.float64), c.astype(np.float64)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    r = s.astype(np.float32)
+    rd = r.astype(np.float64)
+    n = np.nextafter(r, np.where(s > rd, np.float32(np.inf), np.float32(-np.inf)).astype(np.float32))
+    nd = n.astype(np.float64)
+    take_n = (s != rd) & (s == (rd + nd) * 0.5) & (err != 0) & ((err > 0) == (nd > rd))
+    return np.where(take_n, n, r)
+
+
+def fma_chain_blur3d(v, taps):
+    """The blur csrc/blur3d.cu defines, in numpy: x pass, y pass, z pass;
+    output o of a pass is acc = fma(taps[i - o + r], v[i], acc) over the
+    in-volume inputs i in ascending order, from acc = 0."""
+    import numpy as np
+
+    r = len(taps) // 2
+    for axis in (-1, -2, -3):
+        u = np.moveaxis(v, axis, -1)
+        n = u.shape[-1]
+        o = np.arange(n)
+        acc = np.zeros_like(u)
+        for k in range(2 * r + 1):
+            i = o - r + k
+            src = u[..., np.clip(i, 0, n - 1)]
+            acc = np.where((i >= 0) & (i < n), fma_f32(np.full_like(src, taps[k]), src, acc), acc)
+        v = np.moveaxis(acc, -1, axis)
+    return v
+
+
+def nvcc_report(names) -> dict:
+    """{kernel<template args>: [registers, shared bytes, spill store bytes,
+    spill load bytes]} from the build's nvcc.log (ptxas -v) for the kernels
+    whose names contain one of names."""
+    from sift3d_torch.kernels import cuda_lib
+
+    def short(mangled):
+        # _ZN <len><namespace> <len><name> [I Li<n>E ... E] ...: the name and its int arguments
+        pos, name = 3, ""
+        while pos < len(mangled) and mangled[pos].isdigit():
+            n = re.match(r"\d+", mangled[pos:]).group()
+            pos += len(n)
+            name = mangled[pos:pos + int(n)]
+            pos += int(n)
+        args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+        ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+        return name + (f"<{','.join(ints)}>" if ints else "")
+
+    report, entry, spills = {}, None, (0, 0)
+    for line in (cuda_lib.library_path().parent / "nvcc.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = short(m.group(1))
+            entry = entry if any(n in entry for n in names) else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and entry:
+            report[entry] = [int(m.group(1)), int(m.group(2)), *spills]
+            entry = None
+    return report
+
+
+EDGE_SIGMAS = (0.5, 0.95, 1.2, 1.6, 2.0, 2.4, 2.8, 3.0897)  # blur radii 1..8
+
+
+def kernel_edges(dev, cfg, band) -> None:
+    """Phase 2 edge shapes. K7 against the plain blur on the CPU (the same
+    fma chain, exact): volumes thinner than 2r + 1 along z, y and x in turn,
+    sizes that are no multiple of a tile, a batch of three octave-1
+    volumes, and every radius 1..8 on one octave-1 volume; at the deepest
+    T1 octave (5 x 6 x 5), where the CPU's plain blur sums in another
+    order, against the fma chain computed in numpy. K3 (k = 6 and
+    11), K8 and K9 against their plain versions on the card (exact) on
+    synthetic rows with V in {1, 127, 128, 129, 485}, with an all-zero-weight
+    row, and with two exactly tied peaks; K9's top-k must be K3's output."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import gauss, gauss_cuda, hist_cuda
+
+    rng = np.random.default_rng(11)
+    level5 = cfg.incremental_sigmas()[-1]
+    cases = [((5, 40, 300), level5, "z thinner than 2r+1"), ((300, 7, 40), level5, "y thinner than 2r+1"),
+             ((40, 300, 9), level5, "x thinner than 2r+1"), ((37, 75, 61), 1.6, "no axis a tile multiple"),
+             ((3, 91, 109, 91), level5, "batch of 3 octave-1 volumes")]
+    cases += [((91, 109, 91), s, f"radius {r}") for r, s in enumerate(EDGE_SIGMAS, 1)]
+    for shape, sigma, what in cases:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        xd = x.to(dev)
+        err = max_abs(gauss_cuda.blur3d(xd, sigma, cfg.blur_precision).cpu(),
+                      gauss.blur3d(x, sigma, cfg.blur_precision))
+        rate = blur_rate(xd, sigma, cfg.blur_precision)
+        print(f"phase2 blur3d edge, {what} {shape}, sigma {sigma!r}: max_abs_err {err!r} against the plain "
+              f"version on the CPU (exact); {rate}")
+        if err != 0.0 or (what.startswith("radius") and f"r {what.split()[1]}," not in rate):
+            raise AssertionError(f"K7 differs from the CPU plain blur on {what} {shape}: {err}")
+    # the deepest octave of the T1 grid: K7 against the fma chain in numpy
+    # (the CPU plain blur sums its y pass in another order at this shape)
+    deep = rng.standard_normal((5, 6, 5)).astype(np.float32)
+    for sigma in cfg.incremental_sigmas():
+        taps = gauss_cuda.host_taps(float(sigma), float(cfg.blur_precision)).numpy()
+        got = gauss_cuda.blur3d(torch.from_numpy(deep).to(dev), sigma, cfg.blur_precision).cpu()
+        err = max_abs(got, torch.from_numpy(fma_chain_blur3d(deep, taps)))
+        cpu_err = max_abs(got, gauss.blur3d(torch.from_numpy(deep), sigma, cfg.blur_precision))
+        print(f"phase2 blur3d edge, deepest T1 octave (5, 6, 5), sigma {sigma!r} (r {len(taps) // 2}): "
+              f"max_abs_err {err!r} against the fma chain (exact), {cpu_err!r} against the CPU plain blur")
+        if err != 0.0:
+            raise AssertionError(f"K7 differs from the fma chain at (5, 6, 5), sigma {sigma}: {err}")
+
+    def rows(c, v):
+        e = rng.standard_normal((c, v, 3)).astype(np.float32)
+        e /= np.linalg.norm(e, axis=-1, keepdims=True)
+        w = np.abs(rng.standard_normal((c, v))).astype(np.float32)
+        return [np.ascontiguousarray(e[..., i] * 5 + 5) for i in range(3)] + [w]
+
+    sets = [(f"V={v}", rows(8, v)) for v in (1, 127, 128, 129, 485)]
+    zero = rows(8, 485)
+    zero[3][2] = 0.0
+    sets.append(("row 2 of zero weight, V=485", zero))
+    # two single-bin points at mirrored x give two exactly equal peaks
+    tie = [np.full((2, 3), 5.0, np.float32) for _ in range(3)] + [np.tile(np.float32([1.0, 1.0, 0.5]), (2, 1))]
+    tie[0][0], tie[0][1] = [7.0, 3.0, 9.0], [3.0, 7.0, 1.0]
+    sets.append(("two tied peaks, V=3", tie))
+    for what, pts in sets:
+        t = [torch.from_numpy(a).to(dev) for a in pts]
+        errs = {}
+        for k in (6, 11):
+            errs[f"hist_topk k={k}"] = max_abs(hist_cuda.hist_topk(*t, band, k), hist_cuda.hist_topk_plain(*t, band, k))
+        errs["splat_histogram_raw"] = max_abs(hist_cuda.splat_histogram_raw_bins(*t),
+                                              hist_cuda.splat_histogram_raw_plain(*t))
+        got, want = hist_cuda.smooth_histogram_peaks_bins(*t, band), hist_cuda.smooth_histogram_peaks_plain(*t, band)
+        errs["smooth_histogram_peaks"] = max(max_abs(got[0], want[0]), max_abs(got[1], want[1]))
+        top_is_k3 = all(torch.equal(hist_cuda.peak_rows(*got, k), hist_cuda.hist_topk(*t, band, k)) for k in (6, 11))
+        print(f"phase2 histogram edge, {what}: max_abs_err {json.dumps(errs)} (exact); "
+              f"K9's top-k equals K3 {top_is_k3}")
+        if max(errs.values()) != 0.0 or not top_is_k3:
+            raise AssertionError(f"a histogram kernel differs from its plain version on {what}: {errs}")
+        if what.startswith("two tied"):
+            out = hist_cuda.hist_topk(*t, band, 4).cpu()
+            if not (out[0, 0, 0] == out[0, 1, 0] and (out[:, :2, 7] % 16).tolist() == [[3, 7], [3, 7]]):
+                raise AssertionError("the tied peaks did not come lowest flat index first")
+
+
+XY_Z_LAUNCHES = [dict(kind="xy_z", ry=ry, z=z) for ry in (8, 4, 2) for z in ((16, 64, 4), (16, 32, 2), (4, 32, 2))]
+
+
+def blur_geometry_sweep(x, sigma, min_value, label, launches=XY_Z_LAUNCHES) -> None:
+    """K7 at other launches than the chosen one on the same input: each
+    output equal to the chosen launch's, with its median ms of single
+    calls and a call's share of a burst."""
+    import torch
+
+    from sift3d_torch.kernels import gauss_cuda
+
+    shape = (1, *x.shape) if x.ndim == 3 else tuple(x.shape)
+    taps = gauss_cuda.host_taps(float(sigma), float(min_value))
+    chosen = gauss_cuda.blur_launch_geometry(shape, taps.shape[0] // 2, gauss_cuda.sm_count(x.device))
+    want = gauss_cuda.blur3d(x, sigma, min_value)
+    times = {}
+    for g in [chosen, *launches]:
+        run = functools.partial(gauss_cuda._launch, x, taps, g)
+        same = torch.equal(run(), want)
+        times[json.dumps(g)] = [round(median_ms(run), 4), round(burst_ms(run), 4), same]
+        if not same:
+            raise AssertionError(f"K7 at {g} differs from the chosen launch")
+    print(f"phase2 blur3d launches, {label} {tuple(x.shape)} r {taps.shape[0] // 2}: chosen {json.dumps(chosen)}; "
+          f"[ms, back to back ms, equal to the chosen] {json.dumps(times)}")
+
+
 def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
@@ -283,10 +507,12 @@ def compare_kernels(vol, cfg):
         ms, plain_ms = median_ms(kernel), median_ms(plain)
         bound_ms, bound_by = bound(n_bytes, flops)
         library_ms = None if library is None else median_ms(library)
+        burst = [burst_ms(kernel), None if library is None or library_ms > 5 else burst_ms(library)]
         print(
             f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
             f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
-            f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms"
+            f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms; back to back [kernel, "
+            f"library] {burst!r} ms a call"
         )
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
@@ -311,6 +537,7 @@ def compare_kernels(vol, cfg):
     ]
     for note, x, sigma, on_cpu in blur_cases:
         peak = float(x.abs().max())
+        print(f"phase2 blur3d: {note} {tuple(x.shape)}: {blur_rate(x, sigma, cfg.blur_precision)}")
         taps = gauss_cuda.device_taps(float(sigma), float(cfg.blur_precision), x.device).shape[0]
         record(
             "blur3d", "sift3d_torch/csrc/blur3d.cu", "sift3d/kernels/gauss_pallas.py:97",
@@ -325,7 +552,14 @@ def compare_kernels(vol, cfg):
             print(f"phase2 blur3d: {note} against the plain version on the CPU: max_abs_err {cpu_err!r} (exact)")
             if cpu_err != 0.0:
                 raise AssertionError(f"K7 differs from the CPU plain blur at the {note}: {cpu_err}")
+    # the BRIEF batch through xy + z, against the small-volume kernel
+    blur_geometry_sweep(patches, cfg.brief_blur_sigma, cfg.blur_precision, "BRIEF pre-blur",
+                        [dict(kind="xy_z", ry=ry, z=z) for ry in (1, 2) for z in ((16, 32, 1), (16, 256, 1))])
     del patches
+    blur_geometry_sweep(vol, initial_blur_sigma(cfg), cfg.blur_precision, "T1 initial blur")
+    blur_geometry_sweep(vol, level5, cfg.blur_precision, "T1 level-5 blur")
+    blur_geometry_sweep(doubled, level5, cfg.blur_precision, "-2+ level-5 blur")
+    kernel_edges(vol.device, cfg, features.ori_hist_band(cfg, vol.device))
 
     # K1-K4 on the octave-0 Gaussian stack of each resampling path and on
     # its rows: the T1 grid (rows tiled to a realistic count; these times
@@ -394,7 +628,7 @@ def compare_kernels(vol, cfg):
             "hist_topk", "sift3d_torch/csrc/hist_topk.cu", "sift3d/kernels/hist_pallas.py:368",
             lambda: hist_cuda.hist_topk(*hrows, band, k1),
             lambda: hist_cuda.hist_topk_plain(*hrows, band, k1),
-            1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note}, k={k1}",
+            0.0, f"{hist_note}, k={k1} (exact)",
             16 * c_rows * v_pts + 4 * 121 + 64 * k1 * c_rows, 2 * nz**3 * c_rows * v_pts,
         )
         if label == "T1":
@@ -404,7 +638,7 @@ def compare_kernels(vol, cfg):
                 "sift3d/kernels/hist_pallas.py:164",
                 lambda: hist_cuda.splat_histogram_raw_bins(*hrows),
                 lambda: hist_cuda.splat_histogram_raw_plain(*hrows),
-                1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note} (raw splat)",
+                0.0, f"{hist_note} (raw splat, exact)",
                 16 * c_rows * v_pts + 4 * 1331 * c_rows, 16 * c_rows * v_pts,
                 splat_index_add_call(*hrows),
             )
@@ -413,7 +647,7 @@ def compare_kernels(vol, cfg):
                 "sift3d/kernels/hist_pallas.py:396",
                 lambda: hist_cuda.smooth_histogram_peaks_bins(*hrows, band),
                 lambda: hist_cuda.smooth_histogram_peaks_plain(*hrows, band),
-                1e-5 * float(wgt.sum(dim=1).max()), f"{hist_note} (histogram and peak plane)",
+                0.0, f"{hist_note} (histogram and peak plane, exact)",
                 16 * c_rows * v_pts + 4 * 121 + 8 * 1331 * c_rows, 2 * nz**3 * c_rows * v_pts,
             )
             top = hist_cuda.peak_rows(*hist_cuda.smooth_histogram_peaks_bins(*hrows, band), k1)
@@ -745,6 +979,11 @@ def main() -> int:
         f"phase1 card {card}; torch {torch.__version__}; cuda {torch.version.cuda}; "
         f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name})"
     )
+    redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks"))
+    print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9: "
+          f"{json.dumps(redesigned)}")
+    if any(v[2] or v[3] for v in redesigned.values()):
+        print("phase1 warning: a redesigned kernel spills registers")
 
     vol_np = synthetic_blob_texture(FULL_DIMS, seed=7)
     vol = torch.from_numpy(vol_np).to(dev)
@@ -824,14 +1063,23 @@ def main() -> int:
         busy, span, n_dev, n_launch, per_name = prof
         ours = {}
         for name in wrappers:
-            hits = [v for k, v in per_name.items() if f"::{name}_kernel" in k]
+            # K7 launches blur_xy_kernel and blur_col_kernel, or blur3d_small_kernel
+            hits = [v for k, v in per_name.items()
+                    if f"::{name}_kernel" in k or (name == "blur3d" and "::blur" in k)]
             ours[name] = [sum(n for n, _ in hits), round(sum(ms for _, ms in hits), 4)]
         top = {name: [n, round(ms, 4)] for name, (n, ms) in list(per_name.items())[:10]}
+        k7 = {}  # K7's kernels by template instance
+        for k, (n, ms) in per_name.items():
+            m = re.search(r"::(blur\w+<[^>]*>)", k)
+            if m:
+                n0, ms0 = k7.get(m.group(1), (0, 0.0))
+                k7[m.group(1)] = [n0 + n, round(ms0 + ms, 4)]
         print(
             f"phase4 wall_ms {walls!r} (median {wall!r}); profiled: device busy {busy!r} ms in "
             f"{n_dev} device events, {n_launch} launch calls, trace span {span!r} ms; idle share "
             f"{1 - busy / wall!r} of the unprofiled median wall, {1 - busy / span!r} of the span; "
-            f"device [events, ms] of the port's kernels {json.dumps(ours)}, of the "
+            f"device [events, ms] of the port's kernels {json.dumps(ours)} (K7 by kernel "
+            f"{json.dumps(k7)}), of the "
             f"{len(top)} costliest of {len(per_name)} kernel names {json.dumps(top)}"
         )
 

@@ -18,37 +18,60 @@
 // interior peak, -inf elsewhere), both [C, 11, 11, 11]: the TPU's padded
 // [C, 128, 16] layout is an artifact of its (8, 128) tiling.
 //
-// What bounds them on an H100: arithmetic, not memory, as written. A row
-// reads only 4 * V floats (V = 485) but forms 1331 * V products; K8's and
-// K9's outputs (1331 floats, or 2 x 1331, per row) are larger than their
-// inputs but still small next to that.
+// The arithmetic is fixed. Splat and blur are separable, so each point adds
+//   fz[z] * (fy[y] * fx[x])
+// to bin (z, y, x), with per-axis blurred factors
+// f = w0 * B[i0] + (1 - w0) * B[i0 + 1] and the point's weight applied on z
+// (the JAX CPU path's form, features.py:109-175). K8 is the same with the
+// identity as the band B, so each factor is one of the two trilinear weights
+// exactly. Each bin sums the points of a 128-point chunk in index order as
+// s = fma(fz, fy * fx, s), the product rounded on its own, and adds the chunk
+// sum to its total: the order of the JAX package's CPU path (its 128-point
+// einsum chunks), so the two agree to the bit. No float atomics and no other
+// order: a reordered sum flips near-threshold orientation peaks.
 //
-// Design: one block per row; the histogram lives in shared memory. Splat
-// and blur are separable, so each point contributes
-//   (w * fz[z]) * (fy[y] * fx[x])
-// with per-axis blurred factors f = w0 * B[i0] + (1 - w0) * B[i0 + 1]
-// (the JAX CPU path's form, features.py:109-175). K8 is the same
-// accumulation with the identity as the band B, so each factor is one of
-// the two trilinear weights exactly. Points are staged in
-// shared memory 128 at a time; each thread owns up to 6 bins, accumulates
-// a chunk's points in index order with fused multiply-adds and adds the
-// chunk sum to the bin: the order in which the JAX package's CPU path sums
-// (its 128-point einsum chunks), so the two agree to the bit. No float
-// atomics: the order is fixed, so results repeat from run to run (atomics
-// would reorder the sums and flip near-threshold orientation peaks). The
-// three kernels share one body, templated on where it stops, so on the same
-// rows K9's histogram is K3's and the top-k of K9's peak plane is K3's
-// output bit for bit.
+// What bounds it on an H100: shared-memory load throughput. A row reads 4 * V
+// floats but forms 1331 * V products; the outputs (1331 or 2 x 1331 floats
+// a row) are small next to that. The products are cheap for the f32 pipe
+// (about 0.08 ms for the T1 rows at 67 TFLOP/s); what costs is feeding
+// them the factors. The first design (one bin per thread, 6 bins a thread)
+// loaded fz, fy and fx from shared memory for every multiply-add: three
+// shared loads per FMA, 1.14 ms on the T1 rows.
+//
+// Design: one row per 128-thread block. Thread (y, x) owns the column of
+// 11 z bins in registers, so for each point it forms the product
+// p = fy[y] * fx[x] once and runs 11 FMAs s[z] = fma(fz[z], p, s[z]), with
+// fz read as three float4 broadcasts (every thread reads the same address):
+// about 5 shared loads per 11 FMAs. A point's factors are staged by one
+// thread, fx and fy point-fastest (129-float row stride, no bank
+// conflicts), fz point-major. Skipping exact zeros: every factor and
+// weight is >= 0 and finite, so a point whose product is 0 for a column
+// adds fma(fz, 0, s) == s and a point with fz == 0 adds fma(0, p, s) == s.
+// Each warp lists, per chunk and in index order, the points whose nonzero
+// y factors meet the warp's y rows (a ballot per 32 points) and runs only
+// those; the list is the same for every thread of the warp, and the
+// chain's bits do not change. Under the sigma 0.5 band a point has 4
+// nonzero factors per axis, under the identity band (K8) 2, so a warp
+// skips about half the points (K3) or 60% (K8). The top-k: one warp
+// compacts the peak plane (few peaks) in flat order, then takes k rounds
+// of a warp arg-max with no block barrier. The three kernels share one
+// body, templated on where it stops, so on the same rows K9's histogram is
+// K3's and the top-k of K9's peak plane is K3's output bit for bit.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBinsPerThread = (sift3d::kPatchVox + kThreads - 1) / kThreads;  // 6
-constexpr int kChunk = 128;  // points staged per pass
-constexpr int kLanes = 16;   // output lanes per peak
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 128;  // one thread per (y, x) column; 121 used
+constexpr int kChunk = 128;    // points per partial sum (hist_cuda.CHUNK)
+constexpr int kPad = 12;       // a factor row padded to three float4
+constexpr int kLanes = 16;     // output lanes per peak
+constexpr int kSkip = 0xff;    // meta of a point no warp needs (lo 255 > hi 0)
+// the peak plane (1331 floats) and the peak list (strict peaks are never
+// adjacent: at most 5^3 of the 9^3 interior bins) reuse the factor stage
+static_assert(125 <= kChunk * kPad &&
+                  sift3d::kPatchVox <= (sift3d::kPatchDim + 1) * (kChunk + 1),
+              "the peak plane and list fit in the factor stage");
 
 enum Mode { kSplat, kPeaks, kTopk };  // where the body stops
 
@@ -65,70 +88,121 @@ __device__ __forceinline__ void hist_body(const float* __restrict__ cx,
                                           float* __restrict__ out, int V, int k) {
   using namespace sift3d;
   constexpr int P = kPatchDim;
-  __shared__ float band_s[P * P];
-  __shared__ float fx[kChunk][P], fy[kChunk][P], fz[kChunk][P];
+  constexpr int PP = P * P;
+  __shared__ float band_s[PP];
+  // fx and fy point-fastest with a 129-float row stride (staging stores and
+  // the splat's per-thread reads hit distinct banks); row 11 stays zero for
+  // the padding threads. fz (z weighted) point-major, three float4 a point.
+  __shared__ float fxy[2][P + 1][kChunk + 1];
+  __shared__ __align__(16) float fz_s[kChunk][kPad];
+  // per point: its nonzero y factors lo | hi << 8, kSkip when its weighted
+  // z factors are all zero
+  __shared__ int meta[kChunk];
+  __shared__ int live_s[kThreads / 32][kChunk];  // per warp: the points it adds
   __shared__ float hist[kPatchVox];
-  __shared__ float pk[kPatchVox];
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int sel_s;
   const int c = blockIdx.x;
   const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
   const size_t row = (size_t)c * V;
-  for (int i = tid; i < P * P; i += kThreads) band_s[i] = band[i];
+  for (int i = tid; i < PP; i += kThreads) band_s[i] = band[i];
+  for (int i = tid; i < 2 * (kChunk + 1); i += kThreads) fxy[i / (kChunk + 1)][P][i % (kChunk + 1)] = 0.0f;
 
-  float acc[kBinsPerThread];
+  // this thread's column; threads 121..127 read the zero row (y = 11)
+  const int y = tid / P, x = tid % P;
+  // the y rows of this warp's columns
+  const int wy_lo = (warp * 32) / P, wy_hi = min(P - 1, (warp * 32 + 31) / P);
+
+  float acc[P];
 #pragma unroll
-  for (int j = 0; j < kBinsPerThread; ++j) acc[j] = 0.0f;
+  for (int z = 0; z < P; ++z) acc[z] = 0.0f;
 
   for (int v0 = 0; v0 < V; v0 += kChunk) {
     const int nv = min(kChunk, V - v0);
     __syncthreads();  // band_s ready / previous chunk consumed
-    for (int e = tid; e < 3 * nv; e += kThreads) {
-      const int v = e / 3, a = e % 3;
-      const float u = (a == 0 ? cx : (a == 1 ? cy : cz))[row + v0 + v];
-      int i0;
-      float w0;
-      interp_bin(u, P, i0, w0);
-      const float w1 = 1.0f - w0;
+    if (tid < nv) {  // thread v stages point v: its three factor rows
+      const int v = tid;
       const float wv = w[row + v0 + v];
-      float* f = a == 0 ? fx[v] : (a == 1 ? fy[v] : fz[v]);
-      for (int o = 0; o < P; ++o) {
-        const float val = w0 * band_s[i0 * P + o] + w1 * band_s[(i0 + 1) * P + o];
-        f[o] = a == 2 ? wv * val : val;
+      int y_lo = P, y_hi = -1;
+      bool z_any = false, finite = true;
+      float fz[kPad];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        int i0;
+        float w0;
+        interp_bin((a == 0 ? cx : (a == 1 ? cy : cz))[row + v0 + v], P, i0, w0);
+        const float w1 = 1.0f - w0;
+#pragma unroll
+        for (int o = 0; o < P; ++o) {
+          const float val = w0 * band_s[i0 * P + o] + w1 * band_s[(i0 + 1) * P + o];
+          const float fo = a == 2 ? wv * val : val;
+          if (a < 2) fxy[a][o][v] = fo;
+          else fz[o] = fo;
+          finite = finite && isfinite(fo);
+          if (a == 1 && fo != 0.0f) {
+            y_lo = min(y_lo, o);
+            y_hi = o;
+          }
+          z_any = z_any || (a == 2 && fo != 0.0f);
+        }
       }
+      fz[P] = 0.0f;
+      float4* dst = reinterpret_cast<float4*>(fz_s[v]);
+      dst[0] = make_float4(fz[0], fz[1], fz[2], fz[3]);
+      dst[1] = make_float4(fz[4], fz[5], fz[6], fz[7]);
+      dst[2] = make_float4(fz[8], fz[9], fz[10], fz[11]);
+      // a point with a non-finite factor is never skipped (0 * inf is NaN)
+      if (!finite) {
+        y_lo = 0;
+        y_hi = P - 1;
+        z_any = true;
+      }
+      meta[v] = z_any && y_lo <= y_hi ? (y_lo | (y_hi << 8)) : kSkip;
     }
     __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kBinsPerThread; ++j) {
-      const int b = tid + j * kThreads;
-      if (b < kPatchVox) {
-        const int z = b / (P * P), y = (b / P) % P, x = b % P;
-        float s = 0.0f;
-        for (int v = 0; v < nv; ++v) s = fmaf(fz[v][z], fy[v][y] * fx[v][x], s);
-        acc[j] = acc[j] + s;
-      }
+    // each warp lists, in index order, the points whose nonzero y factors
+    // meet its y rows: the others add exact zeros to every bin it owns
+    int n_live = 0;
+    for (int base = 0; base < nv; base += 32) {
+      const int v = base + lane;
+      const int m = v < nv ? meta[v] : kSkip;
+      const bool live = (m & 0xff) <= wy_hi && (m >> 8) >= wy_lo;
+      const unsigned mask = __ballot_sync(0xffffffffu, live);
+      if (live) live_s[warp][n_live + __popc(mask & ((1u << lane) - 1u))] = v;
+      n_live += __popc(mask);
     }
-  }
+    __syncwarp();
+    float s[P];
 #pragma unroll
-  for (int j = 0; j < kBinsPerThread; ++j) {
-    const int b = tid + j * kThreads;
-    if (b < kPatchVox) {
-      hist[b] = acc[j];
-      if (M != kTopk) hist_out[(size_t)c * kPatchVox + b] = acc[j];
+    for (int z = 0; z < P; ++z) s[z] = 0.0f;
+    for (int i = 0; i < n_live; ++i) {
+      const int v = live_s[warp][i];
+      const float p = fxy[1][y][v] * fxy[0][x][v];
+      const float4* fz4 = reinterpret_cast<const float4*>(fz_s[v]);
+      const float4 a0 = fz4[0], a1 = fz4[1], a2 = fz4[2];
+      const float fz[P] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x, a2.y, a2.z};
+#pragma unroll
+      for (int z = 0; z < P; ++z) s[z] = fmaf(fz[z], p, s[z]);
+    }
+#pragma unroll
+    for (int z = 0; z < P; ++z) acc[z] = acc[z] + s[z];
+  }
+  if (tid < PP) {
+#pragma unroll
+    for (int z = 0; z < P; ++z) {
+      hist[z * PP + tid] = acc[z];
+      if (M != kTopk) hist_out[(size_t)c * kPatchVox + z * PP + tid] = acc[z];
     }
   }
   if (M == kSplat) return;
   __syncthreads();
 
-  // strict interior 26-neighbour peaks; everything else is -inf
-#pragma unroll
-  for (int j = 0; j < kBinsPerThread; ++j) {
-    const int b = tid + j * kThreads;
-    if (b >= kPatchVox) continue;
-    const int z = b / (P * P), y = (b / P) % P, x = b % P;
-    float p = -INFINITY;
-    if (z >= 1 && z <= P - 2 && y >= 1 && y <= P - 2 && x >= 1 && x <= P - 2) {
+  // strict interior 26-neighbour peaks; everything else is -inf. The peak
+  // plane reuses the factor stage.
+  float* pk = &fxy[0][0][0];
+  for (int b = tid; b < kPatchVox; b += kThreads) {
+    const int bz = b / PP, by = (b / P) % P, bx = b % P;
+    float pv = -INFINITY;
+    if (bz >= 1 && bz <= P - 2 && by >= 1 && by <= P - 2 && bx >= 1 && bx <= P - 2) {
       const float h = hist[b];
       bool peak = true;
       for (int dz = -1; dz <= 1; ++dz)
@@ -137,75 +211,78 @@ __device__ __forceinline__ void hist_body(const float* __restrict__ cx,
             if (dz == 0 && dy == 0 && dx == 0) continue;
             peak = peak && (h > hist[b + (dz * P + dy) * P + dx]);
           }
-      if (peak) p = h;
+      if (peak) pv = h;
     }
-    pk[b] = p;
-    if (M == kPeaks) pk_out[(size_t)c * kPatchVox + b] = p;
+    pk[b] = pv;
+    if (M == kPeaks) pk_out[(size_t)c * kPatchVox + b] = pv;
   }
   if (M == kPeaks) return;
   __syncthreads();
+  if (warp != 0) return;
 
-  const int warp = tid / 32, lane = tid % 32;
+  // warp 0: the peaks in ascending flat index, then k rounds of arg-max
+  // (lowest flat index first among equal values)
+  float* list_v = &fxy[1][0][0];
+  int* list_i = reinterpret_cast<int*>(&fz_s[0][0]);
+  int n = 0;
+  for (int base = 0; base < kPatchVox; base += 32) {
+    const int b = base + lane;
+    const bool is_pk = b < kPatchVox && pk[b] > -INFINITY;
+    const unsigned m = __ballot_sync(0xffffffffu, is_pk);
+    if (is_pk) {
+      const int at = n + __popc(m & ((1u << lane) - 1u));
+      list_v[at] = pk[b];
+      list_i[at] = b;
+    }
+    n += __popc(m);
+  }
+  __syncwarp();
   for (int s = 0; s < k; ++s) {
-    // arg-max, lowest flat index first among equal values
     float bv = -INFINITY;
-    int bi = kPatchVox;
-#pragma unroll
-    for (int j = 0; j < kBinsPerThread; ++j) {
-      const int b = tid + j * kThreads;
-      if (b < kPatchVox) {
-        const float p = pk[b];
-        if (p > bv || (p == bv && b < bi)) {
-          bv = p;
-          bi = b;
-        }
+    int bi = kPatchVox, bj = -1;
+    for (int j = lane; j < n; j += 32) {  // ascending flat index within a lane
+      if (list_v[j] > bv) {
+        bv = list_v[j];
+        bi = list_i[j];
+        bj = j;
       }
     }
+    float gv = bv;
+    int gi = bi;
     for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
+      const float ov = __shfl_xor_sync(0xffffffffu, gv, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, gi, off);
+      if (ov > gv || (ov == gv && oi < gi)) {
+        gv = ov;
+        gi = oi;
       }
     }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
+    const bool valid = gv > -INFINITY;
+    int z = 1, yy = 1, xx = 1;
+    if (valid) {
+      z = gi / PP;
+      yy = (gi / P) % P;
+      xx = gi % P;
     }
-    __syncthreads();
-    if (tid == 0) {
-      bv = red_v[0];
-      bi = red_i[0];
-      for (int q = 1; q < kWarps; ++q) {
-        if (red_v[q] > bv || (red_v[q] == bv && red_i[q] < bi)) {
-          bv = red_v[q];
-          bi = red_i[q];
-        }
+    const int b = (z * P + yy) * P + xx;
+    float* o = out + ((size_t)c * k + s) * kLanes;
+    if (lane < kLanes) {
+      float val = 0.0f;
+      switch (lane) {
+        case 0: val = gv; break;
+        case 1: val = hist[b - 1]; break;
+        case 2: val = hist[b + 1]; break;
+        case 3: val = hist[b - P]; break;
+        case 4: val = hist[b + P]; break;
+        case 5: val = hist[b - PP]; break;
+        case 6: val = hist[b + PP]; break;
+        case 7: val = (float)((z * P + yy) * kLanes + xx); break;
+        default: break;
       }
-      const bool valid = bv > -INFINITY;
-      int z = 1, y = 1, x = 1;
-      if (valid) {
-        z = bi / (P * P);
-        y = (bi / P) % P;
-        x = bi % P;
-      }
-      const int b = (z * P + y) * P + x;
-      float* o = out + ((size_t)c * k + s) * kLanes;
-      o[0] = bv;
-      o[1] = hist[b - 1];
-      o[2] = hist[b + 1];
-      o[3] = hist[b - P];
-      o[4] = hist[b + P];
-      o[5] = hist[b - P * P];
-      o[6] = hist[b + P * P];
-      o[7] = (float)((z * P + y) * kLanes + x);
-      for (int q = 8; q < kLanes; ++q) o[q] = 0.0f;
-      sel_s = valid ? bi : -1;
+      o[lane] = val;
     }
-    __syncthreads();
-    if (tid == 0 && sel_s >= 0) pk[sel_s] = -INFINITY;
-    __syncthreads();
+    if (valid && bj >= 0 && bi == gi) list_v[bj] = -INFINITY;
+    __syncwarp();
   }
 }
 

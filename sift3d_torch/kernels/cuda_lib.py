@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Every ``sift3d_torch/csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` (Hopper) into ONE shared library with a plain C interface,
-loaded with ``ctypes``. The build happens at the first CUDA call, never at
-import (the CPU tests import every module, and the CPU has no ``nvcc``),
+``sm_90a`` (Hopper), one process per file in parallel, and linked into ONE
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at the first CUDA call, never at import (the CPU tests import
+every module, and the CPU has no ``nvcc``),
 into ``sift3d_torch/_build/<hash>/``, keyed on a hash of the sources and
 flags: a fresh checkout builds everything on first use, a changed source
 rebuilds, and an unchanged one loads the existing library.
@@ -35,7 +36,7 @@ LIB_NAME = "libsift3d_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -57,8 +58,9 @@ SIGNATURES = {
     "sift3d_smooth_histogram_peaks": (_P, _P, _P, _P, _P, _P, _P, _I, _I),
     # gstack, lvl, centers, scales, oris [R,3,3], out [R,1331], R, L, Z, Y, X, z0, depth
     "sift3d_sample_rotated": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
-    # in [B,Z,Y,X] f32, out [B,Z,Y,X] f32, taps [2r+1], r, B, Z, Y, X
-    "sift3d_blur3d": (_P, _P, _P, _I, _I, _I, _I, _I),
+    # in, out, tmp [B,Z,Y,X] f32, taps [2r+1] f32 and geom [6] i32 in host memory
+    # (gauss_cuda.blur_launch_geometry), r, B, Z, Y, X
+    "sift3d_blur3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
 }
 
 
@@ -84,21 +86,41 @@ def library_path() -> pathlib.Path:
 def build() -> pathlib.Path:
     """Compile the library if this source hash has none yet; return it.
 
-    Writes nvcc's report (ptxas registers / shared memory / spills per
-    kernel) beside the library as ``nvcc.log``."""
+    Each source compiles in its own nvcc process, all started together,
+    then one nvcc links them. Writes nvcc's report (ptxas registers /
+    shared memory / spills per kernel) beside the library as ``nvcc.log``."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sources() if s.suffix == ".cu"]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}\nseconds: {time.perf_counter() - t0:.1f}\n"
-    (out.parent / "nvcc.log").write_text(log)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {r.returncode}):\n{r.stderr[-4000:]}")
+    objs, procs = [], []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{text}")
+        if proc.returncode != 0:
+            failed.append(text)
+    tmp = out.with_name(f"{LIB_NAME}.{tag}")
+    if not failed:
+        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+        if r.returncode != 0:
+            failed.append(r.stderr)
+    log.append(f"seconds: {time.perf_counter() - t0:.1f}\n")
+    (out.parent / "nvcc.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -19,10 +19,14 @@ fused multiply-add chain per output: output o of an axis pass is
 ``acc = fma(taps[i - o + r], v[i], acc)`` over the in-range inputs i in
 ascending order, starting from acc = 0 (tests/test_torch_blur.py holds it
 to a numpy replica of that chain at every pyramid sigma and at the BRIEF
-pre-blur's). The hand-written CUDA kernel K7 (``gauss_cuda.blur3d``,
-``csrc/blur3d.cu``) computes exactly that chain, so on the card it equals
-this plain version run on the CPU. cuBLAS on the card sums in its own
-order and agrees only to about an ulp.
+pre-blur's). Not where y and x are both small (a 5x6x5 volume, the
+deepest octave of a 182x218x182 one): there the CPU matmul sums the y pass
+in another order, a few ulps of the terms' magnitude away from the chain
+(tests/test_torch_kernel_edges.py). The hand-written CUDA kernel K7
+(``gauss_cuda.blur3d``, ``csrc/blur3d.cu``) computes exactly that chain,
+so on the card it equals this plain version run on the CPU, apart from
+those small shapes. cuBLAS on the card sums in its own order and agrees
+only to about an ulp.
 """
 
 from __future__ import annotations
