@@ -5,9 +5,10 @@
 
 Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
-     the seconds the hand-written kernels took to build (nvcc, sm_90a), and
-     the registers, shared memory and spills of K7's and K3/K8/K9's
-     kernels from the build's nvcc.log;
+     the seconds the hand-written kernels took to build (nvcc, sm_90a), the
+     registers, shared memory and spills of K7's, K3/K8/K9's and K1/K6's
+     kernels from the build's nvcc.log, and a warning naming any kernel
+     that spills;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
@@ -25,12 +26,18 @@ Phases, each printing one line:
      PyTorch call computes the same function, that call's milliseconds; K7
      also with its launch geometry, its GB/s and the times of other
      geometries on the T1 and -2+ grids and (xy + z against the
-     small-volume kernel) on the BRIEF batch; then edge shapes, each exact:
+     small-volume kernel) on the BRIEF batch; K1 on the T1 and -2+ stacks
+     and K6 on their DoGs and slab at every launch extrema_launch_geometry
+     can choose, each exact, with its times beside the chosen one; then
+     edge shapes, each exact:
      K7 on volumes thinner than 2r + 1 along z, y and x, a 37x75x61 volume,
      a batch of three 91x109x91 volumes and every radius 1..8 (against the
      plain blur on the CPU), on the deepest T1 octave (5x6x5, against the
      fma chain in numpy), K3, K8 and K9 on rows with V in {1, 127, 128,
-     129, 485}, a zero-weight row and two tied peaks;
+     129, 485}, a zero-weight row and two tied peaks, K1 and K6 (a batch of
+     three) at every launch on extents of 3 and 4 along z, y and x, a
+     37x75x61 volume and the 5x6x5 octave, with plateaus, ties, +-0, +-inf
+     and NaN planted on the seams of tiles, warps and z runs;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
      kernel's launch count in that run (each must be > 0); then K8's and
@@ -156,8 +163,14 @@ def at_least(rows, n: int):
 
 
 def max_abs(a, b) -> float:
+    """Largest |a - b| over the finite values; inf where the two differ in
+    where they are NaN or in a non-finite value."""
     import torch
 
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(nan_a, nan_b):
+        return float("inf")
+    a, b = torch.where(nan_a, 0.0, a), torch.where(nan_b, 0.0, b)
     both = torch.isfinite(a) & torch.isfinite(b)
     if not torch.equal(torch.isfinite(a), torch.isfinite(b)) or not torch.equal(a[~both], b[~both]):
         return float("inf")
@@ -458,6 +471,78 @@ def blur_geometry_sweep(x, sigma, min_value, label, launches=XY_Z_LAUNCHES) -> N
           f"[ms, back to back ms, equal to the chosen] {json.dumps(times)}")
 
 
+def extrema_edges(dev) -> None:
+    """Phase 2 edge inputs of K1 and K6 (csrc/dogs_extrema.cu), each exact
+    against the plain version on the card at every launch that
+    extrema_launch_geometry can choose: extents of 3 and 4 along z, y and
+    x, a 37x75x61 volume, the deepest T1 octave (5x6x5) and, for K6, a batch
+    of three; every input with plateaus, ties, +-0, +-inf and NaN planted on
+    the seams of the tiles and z runs (utils.synthetic.extrema_edge_stack)."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import extrema_cuda
+    from sift3d_torch.utils.synthetic import extrema_edge_stack
+
+    shapes = [(3, 40, 70), (40, 3, 70), (40, 70, 3), (4, 40, 70), (40, 4, 70), (40, 70, 4),
+              (37, 75, 61), (5, 6, 5)]
+    for shape in shapes:
+        gs = torch.from_numpy(extrema_edge_stack(shape, 6, sum(shape))).to(dev)
+        dogs, mask = extrema_cuda.dogs_extrema_plain(gs)
+        batch = np.stack([extrema_edge_stack(shape, 5, k + sum(shape)) for k in range(3)])
+        batch = torch.from_numpy(batch).to(dev)
+        mask6 = extrema_cuda.extrema_mask_plain(batch)
+        errs = {}
+        for ty, zr in extrema_cuda.LAUNCHES:
+            g = dict(ty=ty, zr=zr)
+            got_dogs, got_mask = extrema_cuda._launch_dogs(gs, g)
+            errs[f"K1 {ty}/{zr}"] = max(max_abs(got_dogs, dogs), max_abs(got_mask.float(), mask.float()))
+            errs[f"K6 {ty}/{zr}"] = max_abs(extrema_cuda._launch_mask(batch, g).float(), mask6.float())
+        chosen = {k: extrema_cuda.extrema_launch_geometry(b, k) for k, b in
+                  (("dogs_extrema", (1, *shape)), ("extrema_mask", (3, *shape)))}
+        special = {"nan": int(torch.isnan(gs).sum()), "inf": int(torch.isinf(gs).sum()),
+                   "-0": int(((gs == 0) & torch.signbit(gs)).sum())}
+        print(f"phase2 extrema edge {shape} (K6: a batch of 3), planted {json.dumps(special)}, "
+              f"{int((mask != 0).sum())} K1 extrema; chosen {json.dumps(chosen)}; max_abs_err at every "
+              f"launch (exact): {max(errs.values())!r} over {len(errs)}")
+        if max(errs.values()) != 0.0:
+            raise AssertionError(f"K1/K6 differ from their plain versions on {shape}: {errs}")
+
+
+def extrema_geometry_sweep(x, label, kernel) -> None:
+    """K1 (kernel "dogs_extrema", x a Gaussian stack) or K6 ("extrema_mask",
+    x DoGs) at every launch extrema_launch_geometry can choose on the same
+    input: each output equal to the plain version's, with its median ms of
+    single calls and a call's share of a burst."""
+    import torch
+
+    from sift3d_torch.kernels import extrema_cuda
+    from sift3d_torch.kernels.gauss_cuda import sm_count
+
+    if kernel == "dogs_extrema":
+        shape = (1, *x.shape[1:])
+        want = extrema_cuda.dogs_extrema_plain(x)
+        run = functools.partial(extrema_cuda._launch_dogs, x)
+    else:
+        batch = x if x.ndim == 5 else x[None]
+        shape = (batch.shape[0], *batch.shape[2:])
+        want = (extrema_cuda.extrema_mask_plain(batch),)
+        run = functools.partial(extrema_cuda._launch_mask, batch)
+    chosen = extrema_cuda.extrema_launch_geometry(shape, kernel, sm_count(x.device))
+    times = {}
+    for ty, zr in extrema_cuda.LAUNCHES:
+        g = dict(ty=ty, zr=zr)
+        got = run(g)
+        got = got if isinstance(got, tuple) else (got,)
+        same = all(max_abs(a.float(), b.float()) == 0.0 for a, b in zip(got, want))
+        call = functools.partial(run, g)
+        times[f"{ty}/{zr}"] = [round(median_ms(call), 4), round(burst_ms(call), 4), same]
+        if not same:
+            raise AssertionError(f"{kernel} at {g} differs from its plain version on the {label} input")
+    print(f"phase2 {kernel} launches (ty/zr), {label} {tuple(x.shape)}: chosen {json.dumps(chosen)}; "
+          f"[ms, back to back ms, equal to the plain version] {json.dumps(times)}")
+
+
 def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
@@ -560,6 +645,7 @@ def compare_kernels(vol, cfg):
     blur_geometry_sweep(vol, level5, cfg.blur_precision, "T1 level-5 blur")
     blur_geometry_sweep(doubled, level5, cfg.blur_precision, "-2+ level-5 blur")
     kernel_edges(vol.device, cfg, features.ori_hist_band(cfg, vol.device))
+    extrema_edges(vol.device)
 
     # K1-K4 on the octave-0 Gaussian stack of each resampling path and on
     # its rows: the T1 grid (rows tiled to a realistic count; these times
@@ -577,6 +663,8 @@ def compare_kernels(vol, cfg):
             lambda: extrema_cuda.dogs_extrema(gstack), lambda: extrema_cuda.dogs_extrema_plain(gstack),
             0.0, f"{label} octave-0 gstack {tuple(gstack.shape)} (exact)", 47 * vox, 5 * vox,
         )
+        if label != "-2-":
+            extrema_geometry_sweep(gstack, f"{label} octave-0 gstack", "dogs_extrema")
         dogs, mask = extrema_cuda.dogs_extrema(gstack)
         # K6 on the octave's DoGs (T1), and on shard 1 of a 4-shard -2+
         # octave 0 with its one-plane halo (the Z-sharded path's input)
@@ -592,6 +680,7 @@ def compare_kernels(vol, cfg):
                 lambda: extrema_cuda.extrema_mask(d6), lambda: extrema_cuda.extrema_mask_plain(d6),
                 0.0, note6, 23 * d6[0].numel(), 0,
             )
+            extrema_geometry_sweep(d6, note6.split(" (")[0], "extrema_mask")
             del d6
 
         lvl, zyx, _ = features.candidate_table(mask)
@@ -979,11 +1068,13 @@ def main() -> int:
         f"phase1 card {card}; torch {torch.__version__}; cuda {torch.version.cuda}; "
         f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name})"
     )
-    redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks"))
-    print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9: "
-          f"{json.dumps(redesigned)}")
-    if any(v[2] or v[3] for v in redesigned.values()):
-        print("phase1 warning: a redesigned kernel spills registers")
+    redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
+                              "dogs_extrema", "extrema_mask"))
+    print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
+          f"K1, K6: {json.dumps(redesigned)}")
+    spills = sorted(k for k, v in nvcc_report(("",)).items() if v[2] or v[3])
+    if spills:
+        print(f"phase1 warning: kernels that spill registers: {spills}")
 
     vol_np = synthetic_blob_texture(FULL_DIMS, seed=7)
     vol = torch.from_numpy(vol_np).to(dev)

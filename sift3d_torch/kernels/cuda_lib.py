@@ -43,10 +43,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures; every entry ends with (int device, void* stream)
 SIGNATURES = {
-    # g [6,Z,Y,X] f32, dogs [5,Z,Y,X] f32, mask [3,Z,Y,X] i8, Z, Y, X
-    "sift3d_dogs_extrema": (_P, _P, _P, _I, _I, _I),
-    # dogs [B,5,Z,Y,X] f32, mask [B,3,Z,Y,X] i8, B, Z, Y, X
-    "sift3d_extrema_mask": (_P, _P, _I, _I, _I, _I),
+    # g [6,Z,Y,X] f32, dogs [5,Z,Y,X] f32, mask [3,Z,Y,X] i8, Z, Y, X, ty, zr
+    # (extrema_cuda.extrema_launch_geometry)
+    "sift3d_dogs_extrema": (_P, _P, _P, _I, _I, _I, _I, _I),
+    # dogs [B,5,Z,Y,X] f32, mask [B,3,Z,Y,X] i8, B, Z, Y, X, ty, zr
+    "sift3d_extrema_mask": (_P, _P, _I, _I, _I, _I, _I, _I),
     # gstack [L,Z,Y,X], lvl [R] i32, centers [R,3], scales [R], out [R,1331], R, L, Z, Y, X,
     # z0 (global index of plane 0), depth (global Z)
     "sift3d_sample_identity": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),

@@ -81,3 +81,41 @@ def repeatability(a, b, tol=2.0, scale_ratio=2 ** (1.0 / 3.0)):
     hit = ok.any(axis=1)
     nearest = np.where(hit, np.where(ok, d, np.inf).argmin(axis=1), -1)
     return float(hit.mean()), nearest
+
+
+def extrema_edge_stack(shape, levels, seed, steps=((64, 32, 16, 8, 4, 2), (16, 8, 4), (30,))):
+    """[levels, Z, Y, X] f32 inputs for the extrema mask at its edges: a
+    smooth random field (strict extrema) whose y rows are rounded to quarter
+    steps in every third band of three (plateaus and exact ties), with NaN,
+    +inf, -inf, +0 and -0 planted on the seams of tiles of each size in
+    steps (z runs, y rows, x columns: positions k * t, k * t + 1 and
+    k * t + 2; by default csrc/dogs_extrema.cu's z runs, rows and 30-column
+    warps) and on the volume's last two planes, rows and columns; plus, at
+    a seam in the middle, a 3 x 3 x 3 cube of -0 in the first three levels
+    around a +0 at level 1, and a cube of +inf in the last level."""
+    rng = np.random.default_rng(seed)
+    z, y, x = shape
+    v = rng.standard_normal((levels, z, y, x))
+    for axis in (1, 2, 3):
+        for _ in range(2):
+            v = (np.roll(v, 1, axis) + 2 * v + np.roll(v, -1, axis)) / 4
+    v = v.astype(np.float32)
+    band = (np.arange(y) // 3 % 3 == 0)[None, None, :, None]
+    v = np.where(band, np.round(v * 4) / 4, v).astype(np.float32)
+
+    def seams(d, ts):
+        pos = {p for t in ts for k in range(d // t + 1) for p in (k * t, k * t + 1, k * t + 2)}
+        return np.asarray(sorted(p for p in pos | {d - 2, d - 1} if 0 <= p < d))
+
+    where = [seams(d, ts) for d, ts in zip(shape, steps)]
+    n = max(4, v.size // 4000)
+    for val in (np.nan, np.inf, -np.inf, 0.0, -0.0):
+        idx = (rng.integers(0, levels, n),) + tuple(rng.choice(w, n) for w in where)
+        v[idx] = val
+    c = [min(max(int(w[len(w) // 2]), 1), d - 2) for w, d in zip(where, shape)]
+    if min(shape) >= 3 and levels >= 3:
+        box = tuple(slice(max(p - 1, 0), p + 2) for p in c)
+        v[(slice(0, 3),) + box] = -0.0
+        v[(1,) + tuple(c)] = 0.0
+        v[(levels - 1,) + box] = np.inf
+    return v
