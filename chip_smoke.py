@@ -6,9 +6,9 @@
 Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
      the seconds the hand-written kernels took to build (nvcc, sm_90a), the
-     registers, shared memory and spills of K7's, K3/K8/K9's and K1/K6's
-     kernels from the build's nvcc.log, and a warning naming any kernel
-     that spills;
+     registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's and
+     the fused K2's and K4's kernels from the build's nvcc.log, and a
+     warning naming any kernel that spills;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
@@ -16,14 +16,18 @@ Phases, each printing one line:
      (not at the -2+ shapes); K1 on the octave-0 Gaussian stack of the T1
      grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
      grid, K6 on the T1 octave-0 DoGs and on one -2+ shard's one-plane-halo
-     DoG slab, and K2, K3 and K4 on the rows each of those octaves produces
+     DoG slab, and the fused K2, K3 and K4 on the rows each of those octaves produces
      (T1's tiled to 4096), K8 and K9 on T1's primary-histogram rows, whose
      K9 top-k must equal K3 — with the max abs difference, the tolerance,
      median milliseconds of both (one call between two CUDA events, and
      a call's share of a burst of 20, which leaves out the host's launch
      gap), the bound (the least time the card could take: bytes over 3.35
      TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger) and, where one
-     PyTorch call computes the same function, that call's milliseconds; K7
+     PyTorch call computes the same function, that call's milliseconds (the
+     fused K2 and K4, which no one PyTorch call computes, beside the device
+     time of the eager chain each replaces on the same rows: the plain
+     refinement, sampler and eigen test for K2, K4's patch mode and the
+     eager GoH descriptor for K4); K7
      also with its launch geometry, its GB/s and the times of other
      geometries on the T1 and -2+ grids and (xy + z against the
      small-volume kernel) on the BRIEF batch; K1 on the T1 and -2+ stacks
@@ -37,7 +41,13 @@ Phases, each printing one line:
      129, 485}, a zero-weight row and two tied peaks, K1 and K6 (a batch of
      three) at every launch on extents of 3 and 4 along z, y and x, a
      37x75x61 volume and the 5x6x5 octave, with plateaus, ties, +-0, +-inf
-     and NaN planted on the seams of tiles, warps and z runs;
+     and NaN planted on the seams of tiles, warps and z runs, the fused K2
+     on rows whose patch is constant (norm 0, a zero tensor), a ramp along
+     x (a diagonal tensor, r at +-1), a bowl (nearly triple-degenerate) or
+     a ramp with a faint second slope (a nearly degenerate pair), from the
+     whole volume and from a Z slab (gz0 > 0), and the fused K4 on flat
+     patches (all 64 bins tied), rows at scales above 8.80, rows reaching
+     outside the volume in x and slab rows;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
      kernel's launch count in that run (each must be > 0); then K8's and
@@ -47,39 +57,39 @@ Phases, each printing one line:
   4. the same call without the timer (host wall of five calls) and once
      under torch.profiler: device busy milliseconds, the trace's span, the
      idle share against both (the profiler slows the host, so the share
-     against the unprofiled wall is the one a user sees), and the device
-     milliseconds of the costliest kernel names in the trace;
+     against the unprofiled wall is the one a user sees), the launch calls
+     in each stage, and the device milliseconds of the costliest kernel
+     names in the trace;
   5. the port on the card against the port on the CPU on
-     synthetic_volume(64): equal counts, repeatability 1.0 both ways,
-     identical descriptors on >= 99% of rows;
+     synthetic_volume(64): equal counts, locations, scales, orientations
+     and eigenvalues (max difference 0.0), identical descriptors on every
+     row;
   6. the CLI with no flags (it runs on cuda:0) on that volume as NIfTI,
-     against the CLI on the CPU: every kernel launched, equal .key rows,
-     locations, scales and descriptors (orientations may differ: the
-     patch normalization and the structure tensor are reductions that sum
-     in another order on the card, and an eigenvector of a nearly
-     degenerate tensor amplifies the last-bit difference);
+     against the CLI on the CPU: every main-path kernel launched, the two
+     .key files byte-identical;
   7. the CLI on the card at full width with each resampling flag and one
      descriptor flag: -2+ on the 182x218x182 texture (grid 364x436x364),
      -w and -ws on every other z-plane of it at 1x1x2 mm with a rotated
      qform and sform (grid 182x218x182), -2- and -bn on it: wall
-     milliseconds of two calls, .key rows, and every kernel's launches
-     (each must be > 0);
+     milliseconds of two calls, .key rows, and every kernel's launches (the
+     fused K4 on the GoH flags, K4's patch mode and no fused K4 on -bn);
   8. the CLI on the card against the CLI on the CPU for every flag, on the
      64^3-grid volumes of tests/test_torch_cli_flags.py: equal rows,
-     locations and scales, identical descriptors on >= 99% of rows, and
-     for --debug-pgm the same PGM files byte for byte;
+     locations and scales, identical descriptors, byte-identical .key files,
+     and for --debug-pgm the same PGM files byte for byte;
   9. Z-sharded extraction (extract_features_spatial, the CLI's --spatial)
      on a 4-shard mesh on cuda:0, on the -2+ grid (the 2 GiB rule shards
      octave 0) and on the T1 grid with 3 sharded octaves (halos relayed
      over several shards), against extract_features on the card: the
      sharded octaves' gathered Gaussian stacks and masks bit-equal, equal
-     counts, locations, scales and flags, >= 99% identical descriptors,
-     orientations within 1e-3, the -2+ rows equal to phase 7's; wall ms
+     counts, locations, scales, flags, orientations, eigenvalues and
+     descriptors, the -2+ rows equal to phase 7's; wall ms
      beside extract_features' walls, device peak memory and each shard's
      working set, and the launches
      (K6 once per shard in every sharded octave, K1 once per tail octave,
-     K7, K2, K3, K4 > 0); then spatial on the card against spatial on the
-     CPU on synthetic_volume(64), and over every card when there are two
+     K7, the fused K2, K3 and the fused K4 > 0); then spatial on the card
+     against spatial on the CPU on synthetic_volume(64) (equal rows,
+     orientations and descriptors), and over every card when there are two
      or more.
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
@@ -226,6 +236,52 @@ def patch_points(lvl, centers, scales, oris=None):
              + inv[:, i, 2, None] * grid[:, 2]) * fac + centers[:, i, None] for i in range(3)]
 
 
+# The fused kernels' fixed bytes and least f32 operations per row; a
+# comparison (a maximum, a minimum, a rank) is not counted. The fused K2
+# reads the candidate's level and voxel (int64) and writes xyz, scale, pn,
+# eigs, ori and two flags. Its operations: the sampler's 21 per point and 5
+# per point to normalize (a sum, a difference, a square, a sum, a quotient);
+# at the 485 points of the sphere mask, which lie inside the zero gradient
+# border, 3 differences, 6 tensor products and 6 sums; about 450 for the
+# refinement and the eigensolver. The GoH descriptor of a patch: 5 per point
+# to normalize, the mean's quotient and the norm's root; at the 9^3 interior
+# points (the border's gradients are 0 and add nothing), 3 differences, the
+# magnitude (3 products, 2 sums, a root) and the 4 distinct cube-corner dots
+# up to sign (6 sums); the splat, one product of the magnitude and a bin's
+# weight (a constant of the position) and one sum for each spatial bin a
+# point reaches: 10 an axis over the 9 interior positions, since position 5
+# splits between both bins; then per bin a difference, a square, a sum and
+# a quotient, and the norm's root.
+GATHER_EIG_ROW_BYTES = 8 + 24 + 12 + 4 + 4 * 1331 + 12 + 36 + 2
+GATHER_EIG_ROW_FLOPS = (21 + 5) * 1331 + 15 * 485 + 450
+GOH_ROW_FLOPS = 5 * 1331 + 2 + 15 * 9**3 + 2 * 10**3 + 4 * 64 + 1
+
+
+def touched_dogs(shape, lvl, zyx) -> int:
+    """Distinct voxels of a [5, Z, Y, X] DoG stack that the refinement of
+    candidates (lvl [R], zyx [R, 3]) reads: the centre, its six neighbours
+    and the two levels around it."""
+    import torch
+
+    _, zd, yd, xd = shape
+    offs = torch.tensor([(0, 0, 0, 0), (0, 0, 0, 1), (0, 0, 0, -1), (0, 0, 1, 0), (0, 0, -1, 0),
+                         (0, 1, 0, 0), (0, -1, 0, 0), (1, 0, 0, 0), (-1, 0, 0, 0)], device=zyx.device)
+    pts = torch.cat([lvl[:, None], zyx], dim=1)[:, None, :] + offs  # [R, 9, (l, z, y, x)]
+    flat = ((pts[..., 0] * zd + pts[..., 1]) * yd + pts[..., 2]) * xd + pts[..., 3]
+    return int(torch.unique(flat).numel())
+
+
+def chain_time(fn) -> dict:
+    """The eager chain a fused kernel replaces, on the same rows: the median
+    ms of single calls, a call's share of a burst of 5, and the device busy
+    ms and launch calls of one call under torch.profiler."""
+    out = dict(ms=median_ms(fn, 5), b2b_ms=burst_ms(fn, n=5, reps=3), device_ms=None, launches=None)
+    prof = device_profile(fn)
+    if prof is not None:
+        out.update(device_ms=prof[0], launches=prof[3])
+    return out
+
+
 def grid_sample_call(gstack, lvl, centers, scales, oris=None):
     """One torch.nn.functional.grid_sample call that samples the same 11^3
     patches (trilinear, border-saturating, voxel centres at i + 0.5) on all
@@ -336,15 +392,16 @@ def nvcc_report(names) -> dict:
     from sift3d_torch.kernels import cuda_lib
 
     def short(mangled):
-        # _ZN <len><namespace> <len><name> [I Li<n>E ... E] ...: the name and its int arguments
+        # _ZN <len><namespace> <len><name> [I Li<n>E / Lb<n>E ... E] ...: the name and its int or
+        # bool arguments
         pos, name = 3, ""
         while pos < len(mangled) and mangled[pos].isdigit():
             n = re.match(r"\d+", mangled[pos:]).group()
             pos += len(n)
             name = mangled[pos:pos + int(n)]
             pos += int(n)
-        args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
-        ints = re.findall(r"Li(\d+)E", args.group(1)) if args else []
+        args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+        ints = re.findall(r"L[ib](\d+)E", args.group(1)) if args else []
         return name + (f"<{','.join(ints)}>" if ints else "")
 
     report, entry, spills = {}, None, (0, 0)
@@ -509,6 +566,104 @@ def extrema_edges(dev) -> None:
             raise AssertionError(f"K1/K6 differ from their plain versions on {shape}: {errs}")
 
 
+def fused_edges(dev, cfg) -> None:
+    """Phase 2 edge rows of the fused K2 and K4, each exact against its
+    plain version on the card. A 48 x 40 x 160 stack holds four regions
+    along x, each 40 wide so a patch stays in one: zeros (constant patches:
+    norm 0, a zero tensor, p2 = 0), a ramp along x (a diagonal tensor with a
+    double eigenvalue, r at +-1), a bowl (nearly isotropic) and the ramp
+    with a faint y slope (a nearly degenerate pair). K2's rows sit at each
+    region's centre on DoG levels 1..3 with seeded sub-voxel offsets, from
+    the whole stack and from a Z slab (gz0 8, dz0 10). K4's rows add
+    scales above 8.80, centres outside [0, X) in x and a slab (z0 8); goh
+    takes zero, constant, mirrored (tied bins) and noise patches. Prints
+    how many rows hit each case, read from the plain outputs."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import descriptor, patch_cuda
+    from sift3d_torch.kernels.patch import normalize_patches
+    from sift3d_torch.pipeline import features
+
+    rng = np.random.default_rng(21)
+    zd, yd, xd = 48, 40, 160
+    zz, yy, xx = np.mgrid[0:zd, 0:yd, 0:xd].astype(np.float32)
+    vol = np.zeros((zd, yd, xd), np.float32)
+    vol[..., 40:80] = 0.5 * xx[..., 40:80]
+    vol[..., 80:120] = 0.01 * ((zz - 24) ** 2 + (yy - 20) ** 2 + (xx - 100) ** 2)[..., 80:120]
+    vol[..., 120:] = 0.5 * xx[..., 120:] + 1e-3 * yy[..., 120:]
+    gstack = torch.from_numpy(np.stack([vol * (1.0 + 0.01 * k) for k in range(6)])).to(dev)
+    dogs = np.full((5, zd, yd, xd), 0.5, np.float32)
+    cands = []
+    for cx in (20, 60, 100, 140):
+        for lv in (1, 2, 3):
+            for dz, dy, dx in ((0, 0, 0), (-3, 3, 3), (3, -3, -3)):
+                z, y, x = 24 + dz + 4 * (lv - 2), 20 + dy, cx + dx
+                cands.append((lv, z, y, x))
+                for axis in range(4):
+                    for step in (-1, 1):
+                        at = [lv, z, y, x]
+                        at[axis] += step
+                        dogs[tuple(at)] = rng.uniform(0.3, 0.7)
+                dogs[lv, z, y, x] = 1.0
+    dogs = torch.from_numpy(dogs).to(dev)
+    lvl = torch.tensor([c[0] for c in cands], device=dev)
+    zyx = torch.tensor([c[1:] for c in cands], device=dev)
+    sig = tuple(cfg.level_sigmas())
+    cases = {"whole stack": (gstack, dogs, {}),
+             "Z slab, gz0 8, dz0 10": (gstack[:, 8:44].contiguous(), dogs[:, 10:40].contiguous(),
+                                       dict(gz0=8, dz0=10, depth=zd))}
+    for what, (g, d, kw) in cases.items():
+        got = features.gather_eig(g, d, lvl, zyx, sig, cfg, **kw)
+        want = features.gather_eig_plain(g, d, lvl, zyx, sig, cfg, **kw)
+        err = max(max_abs(a.float(), b.float()) for a, b in zip(got, want))
+        _, _, inb, pn, eigs, _, keep = want
+        e = eigs.abs().max(dim=1).values.clamp_min(1e-30)
+        gaps = torch.stack([(eigs[:, 0] - eigs[:, 1]).abs(), (eigs[:, 1] - eigs[:, 2]).abs()], 1) / e[:, None]
+        hits = {"norm 0": int((pn.reshape(len(cands), -1) == 0).all(1).sum()),
+                "three equal eigenvalues": int((gaps == 0).all(1).sum()),
+                "a double eigenvalue (r at +-1)": int(((gaps == 0).any(1) & (gaps != 0).any(1)).sum()),
+                "a nearly degenerate pair (gap < 1e-3 of the largest)":
+                    int(((gaps < 1e-3) & (gaps > 0)).any(1).sum()),
+                "in bounds": int(inb.sum()), "kept": int(keep.sum())}
+        print(f"phase2 gather_eig edge rows, {what}: {len(cands)} rows {json.dumps(hits)}; "
+              f"max_abs_err {err!r} (exact)")
+        if err != 0.0:
+            raise AssertionError(f"the fused K2 differs from its plain version on the edge rows, {what}")
+
+    n = 48
+    lv = torch.from_numpy(rng.integers(1, 4, n).astype(np.int32)).to(dev)
+    centers = np.stack([rng.choice([20.0, 60.0, 100.0, 140.0], n) + rng.uniform(-3, 3, n),
+                        rng.uniform(12, 28, n), rng.uniform(18, 30, n)], 1).astype(np.float32)
+    centers[:6, 0] = [-2.0, 0.5, 3.0, xd - 3.0, xd - 0.5, xd + 2.0]  # outside in x
+    scales = rng.uniform(1.0, 4.0, n).astype(np.float32)
+    scales[6:16] = rng.uniform(8.9, 14.0, 10)  # above the 64^3 box's 8.80
+    oris = np.stack([rotation(k) for k in range(n)]).astype(np.float32)
+    rows = [lv, torch.from_numpy(centers).to(dev), torch.from_numpy(scales).to(dev), torch.from_numpy(oris).to(dev)]
+    small = [t[16:] for t in rows]  # small rows in the slab's middle: every read inside it
+    slab = gstack[:, 8:44].contiguous()
+    errs = {"whole stack": max_abs(patch_cuda.rotated_goh(gstack, *rows).float(),
+                                   patch_cuda.rotated_goh_plain(gstack, *rows).float()),
+            "Z slab, z0 8": max_abs(patch_cuda.rotated_goh(slab, *small, 8, zd).float(),
+                                    patch_cuda.rotated_goh_plain(slab, *small, 8, zd).float())}
+    patches = torch.from_numpy(rng.standard_normal((8, 11, 11, 11)).astype(np.float32)).to(dev)
+    patches[0] = 0.0
+    patches[1] = 3.0
+    patches[2] = (torch.arange(11, device=dev) - 5.0).abs()  # mirrored in x: tied bins
+    patches[3] = (torch.arange(11, device=dev)[:, None, None] - 5.0).abs() * 2.0
+    errs["goh"] = max_abs(patch_cuda.goh(patches).float(), patch_cuda.goh_plain(patches).float())
+    vals = descriptor.normalize_positive(descriptor.goh_descriptor(normalize_patches(
+        torch.cat([patch_cuda.sample_rotated_plain(gstack, *rows), patches]))))
+    tied = int(sum(int(torch.unique(v).numel() < 64) for v in vals))
+    flat = int((vals == 0).all(1).sum())
+    print(f"phase2 rotated_goh / goh edge rows: {n} rotated rows (6 reaching outside x, 10 at scales "
+          f"{float(scales[6:16].min())!r}..{float(scales[6:16].max())!r}), {n - 16} from a slab, "
+          f"{patches.shape[0]} given patches; {tied} rows with tied bins, {flat} all tied; "
+          f"max_abs_err {json.dumps(errs)} (exact)")
+    if max(errs.values()) != 0.0:
+        raise AssertionError(f"the fused K4 differs from its plain version on the edge rows: {errs}")
+
+
 def extrema_geometry_sweep(x, label, kernel) -> None:
     """K1 (kernel "dogs_extrema", x a Gaussian stack) or K6 ("extrema_mask",
     x DoGs) at every launch extrema_launch_geometry can choose on the same
@@ -547,7 +702,9 @@ def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
     events, runtime launch calls, {kernel name: [events, device ms]} in
-    descending ms), or None when the trace holds no device event."""
+    descending ms, {stage: launch calls}), or None when the trace holds no
+    device event. Stages are the profiler ranges "stage:<name>" that
+    StageMarks opens; a launch counts in the stage whose range holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -555,7 +712,9 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # a stage range also shows on the device as an annotation spanning its
+    # kernels: not device work
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith("stage:")]
     if not dev:
         return None
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
@@ -567,7 +726,14 @@ def device_profile(fn):
         n_ms[0] += 1
         n_ms[1] += e.time_range.elapsed_us() / 1e3
     per_name = dict(sorted(per_name.items(), key=lambda kv: -kv[1][1]))
-    return busy, span, len(dev), sum(1 for e in events if e.name in launch_names), per_name
+    launches = [e.time_range.start for e in events if e.name in launch_names]
+    spans = {}
+    for e in events:
+        if e.name.startswith("stage:") and e.device_type == torch.autograd.DeviceType.CPU:
+            spans.setdefault(e.name[len("stage:"):], []).append((e.time_range.start, e.time_range.end))
+    per_stage = {name: sum(1 for t in launches if any(a <= t <= b for a, b in ranges))
+                 for name, ranges in spans.items()}
+    return busy, span, len(dev), len(launches), per_name, per_stage
 
 
 def compare_kernels(vol, cfg):
@@ -584,7 +750,7 @@ def compare_kernels(vol, cfg):
 
     results = []
 
-    def record(name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None):
+    def record(name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None, chain=None):
         got, want = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -593,11 +759,12 @@ def compare_kernels(vol, cfg):
         bound_ms, bound_by = bound(n_bytes, flops)
         library_ms = None if library is None else median_ms(library)
         burst = [burst_ms(kernel), None if library is None or library_ms > 5 else burst_ms(library)]
+        replaced = "" if chain is None else f"; the eager chain it replaces {json.dumps(chain_time(chain))}"
         print(
             f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
             f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
             f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms; back to back [kernel, "
-            f"library] {burst!r} ms a call"
+            f"library] {burst!r} ms a call{replaced}"
         )
         if not err <= tol:
             raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
@@ -646,6 +813,7 @@ def compare_kernels(vol, cfg):
     blur_geometry_sweep(doubled, level5, cfg.blur_precision, "-2+ level-5 blur")
     kernel_edges(vol.device, cfg, features.ori_hist_band(cfg, vol.device))
     extrema_edges(vol.device)
+    fused_edges(vol.device, cfg)
 
     # K1-K4 on the octave-0 Gaussian stack of each resampling path and on
     # its rows: the T1 grid (rows tiled to a realistic count; these times
@@ -684,24 +852,24 @@ def compare_kernels(vol, cfg):
             del d6
 
         lvl, zyx, _ = features.candidate_table(mask)
-        xyz, scale_, in_bounds, patches = features.gather_stage(
-            gstack, dogs, lvl, zyx, tuple(cfg.level_sigmas())
-        )
+        sig = tuple(cfg.level_sigmas())
+        xyz, scale_, in_bounds, pn, _, _, eig_keep = features.gather_eig(gstack, dogs, lvl, zyx, sig, cfg)
         lvl32 = lvl.to(torch.int32)
+        # the fused K2 on the octave's candidates: refinement, patch, eigen
+        # test; its yardstick is the eager chain of its plain pieces
         rows = at_least([lvl32, xyz, scale_], tile)
-        peak = float(gstack.abs().max())
+        crows = at_least([lvl, zyx.contiguous()], tile)
         n_rows = rows[0].shape[0]
+        touched = touched_voxels(gstack.shape, rows[0], *patch_points(*rows))
         record(
-            "sample_identity", "sift3d_torch/csrc/sample_identity.cu", "sift3d/kernels/patch.py:375",
-            lambda: patch_cuda.sample_identity(gstack, *rows),
-            lambda: patch_cuda.sample_identity_plain(gstack, *rows),
-            1e-5 * peak, f"{label}: {lvl.shape[0]} octave-0 candidates as {n_rows} rows",
-            20 * n_rows + 4 * 1331 * n_rows
-            + 4 * touched_voxels(gstack.shape, rows[0], *patch_points(*rows)),
-            21 * 1331 * n_rows, grid_sample_call(gstack, *rows),
+            "gather_eig", "sift3d_torch/csrc/identity_eig.cu", "sift3d/kernels/patch.py:375",
+            lambda: features.gather_eig(gstack, dogs, *crows, sig, cfg),
+            lambda: features.gather_eig_plain(gstack, dogs, *crows, sig, cfg),
+            0.0, f"{label}: {lvl.shape[0]} octave-0 candidates as {n_rows} rows (exact)",
+            GATHER_EIG_ROW_BYTES * n_rows + 4 * touched_dogs(dogs.shape, *crows) + 4 * touched,
+            GATHER_EIG_ROW_FLOPS * n_rows,
+            chain=lambda: features.gather_eig_plain(gstack, dogs, *crows, sig, cfg),
         )
-
-        pn, _, _, eig_keep = features.eig_stage(patches, cfg)
         kidx = torch.nonzero(in_bounds & eig_keep)[:, 0]
         e3, wgt = features.sphere_edges(pn[kidx])
         band = features.ori_hist_band(cfg, vol.device)
@@ -754,16 +922,35 @@ def compare_kernels(vol, cfg):
             [lvl32[kidx][row], xyz[kidx][row], scale_[kidx][row], ori_r], tile
         )
         n_rows = rrows[0].shape[0]
+        peak = float(gstack.abs().max())
+        touched = touched_voxels(gstack.shape, rrows[0], *patch_points(*rrows))
+        rot_note = f"{label}: {row.shape[0]} octave-0 reoriented rows as {n_rows} rows"
         record(
             "sample_rotated", "sift3d_torch/csrc/sample_rotated.cu", "sift3d/kernels/patch.py:889",
             lambda: patch_cuda.sample_rotated(gstack, *rrows),
             lambda: patch_cuda.sample_rotated_plain(gstack, *rrows),
-            1e-5 * peak, f"{label}: {row.shape[0]} octave-0 reoriented rows as {n_rows} rows",
-            56 * n_rows + 4 * 1331 * n_rows
-            + 4 * touched_voxels(gstack.shape, rrows[0], *patch_points(*rrows)),
+            1e-5 * peak, rot_note, 56 * n_rows + 4 * 1331 * n_rows + 4 * touched,
             42 * 1331 * n_rows, grid_sample_call(gstack, *rrows),
         )
-        del gstack, dogs, mask, patches
+        # the fused K4: the rotated patches' descriptors, and the unoriented
+        # rows' descriptors from their normalized patches
+        record(
+            "rotated_goh", "sift3d_torch/csrc/rotated_goh.cu", "sift3d/kernels/patch.py:889",
+            lambda: patch_cuda.rotated_goh(gstack, *rrows),
+            lambda: patch_cuda.rotated_goh_plain(gstack, *rrows),
+            0.0, f"{rot_note} (exact)", 56 * n_rows + 4 * touched + 64 * n_rows,
+            (42 * 1331 + GOH_ROW_FLOPS) * n_rows,
+            chain=lambda: patch_cuda.goh_plain(patch_cuda.sample_rotated(gstack, *rrows)),
+        )
+        prows = at_least([pn[kidx].contiguous()], tile)[0]
+        record(
+            "goh", "sift3d_torch/csrc/rotated_goh.cu", "sift3d/pipeline/features.py:991",
+            lambda: patch_cuda.goh(prows), lambda: patch_cuda.goh_plain(prows),
+            0.0, f"{label}: {kidx.shape[0]} octave-0 unoriented rows as {prows.shape[0]} rows (exact)",
+            (4 * 1331 + 64) * prows.shape[0], GOH_ROW_FLOPS * prows.shape[0],
+            chain=lambda: patch_cuda.goh_plain(prows),
+        )
+        del gstack, dogs, mask, pn
 
     table = {}
     for r in results:
@@ -816,9 +1003,15 @@ def run_cli(argv, workdir: str, device=None):
         os.chdir(here)
 
 
-def cli_full_width(vol_np, wrappers, tmp: str) -> dict:
-    """Phase 7: the CLI on the card with the flags at full width; returns
-    the .key rows of each flag."""
+# the kernels only the GoH descriptor runs, and the one only BRIEF runs
+GOH_ONLY, BRIEF_ONLY = ("rotated_goh", "goh"), ("sample_rotated",)
+
+
+def cli_full_width(vol_np, wrappers, tmp: str):
+    """Phase 7: the CLI on the card with the flags at full width. wrappers
+    holds the main path's kernels and K4's patch mode (sample_rotated): the
+    GoH flags must launch all but that one, -bn all but the fused K4.
+    Returns the .key rows of each flag and the launches of the -bn run."""
     from sift3d_torch.io import keyfile, nifti
 
     t1 = os.path.join(tmp, "t1.nii")
@@ -843,10 +1036,16 @@ def cli_full_width(vol_np, wrappers, tmp: str) -> dict:
             f"phase7 CLI {flag} {os.path.basename(path)} on the card: wall_ms {walls!r}; "
             f"{rows} .key rows; {head[1].strip()}; launches {json.dumps(launches)}"
         )
-        if rows == 0 or min(launches.values()) <= 0:
-            raise AssertionError(f"the CLI with {flag} did not run every kernel: {launches}, {rows} rows")
+        idle = GOH_ONLY if flag == "-bn" else BRIEF_ONLY
+        if rows == 0 or any((launches[k] > 0) == (k in idle) for k in launches):
+            raise AssertionError(f"the CLI with {flag} did not run its kernels: {launches}, {rows} rows")
         rows_of[flag] = rows
-    return rows_of
+    return rows_of, launches
+
+
+def same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
 
 
 def cli_card_vs_cpu(wrappers, tmp: str) -> None:
@@ -880,6 +1079,7 @@ def cli_card_vs_cpu(wrappers, tmp: str) -> None:
         same = len(card) == len(cpu) > 0
         geo = same and bool((card.xyz == cpu.xyz).all() and (card.scale == cpu.scale).all())
         desc = float((card.desc == cpu.desc).all(axis=1).mean()) if same else 0.0
+        key_eq = same_bytes(os.path.join(dirs["card"], "out.key"), os.path.join(dirs["cpu"], "out.key"))
         pgms = sorted(f for f in os.listdir(dirs["cpu"]) if f.endswith(".pgm"))
         pgm_eq = pgms == sorted(f for f in os.listdir(dirs["card"]) if f.endswith(".pgm")) and all(
             open(os.path.join(dirs["card"], f), "rb").read() == open(os.path.join(dirs["cpu"], f), "rb").read()
@@ -888,9 +1088,11 @@ def cli_card_vs_cpu(wrappers, tmp: str) -> None:
         print(
             f"phase8 CLI {flag} {name}: card rc {rc_card}, {len(card)} rows; cpu rc {rc_cpu}, "
             f"{len(cpu)} rows; equal locations and scales {geo}; identical descriptors {desc!r}; "
+            f".key files byte-identical {key_eq} (required); "
             f"{len(pgms)} PGM files equal {pgm_eq}"
         )
-        if not (rc_card == 0 and rc_cpu == 0 and launched > 0 and geo and desc >= 0.99 and pgm_eq):
+        if not (rc_card == 0 and rc_cpu == 0 and launched > 0 and geo and desc == 1.0 and pgm_eq
+                and key_eq):
             raise AssertionError(f"the CLI with {flag} on the card disagrees with the CLI on the CPU")
         if flag == "--debug-pgm" and len(pgms) < 2:
             raise AssertionError("--debug-pgm wrote no PGM files")
@@ -917,7 +1119,7 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     from sift3d_torch.dist.mesh import make_mesh
     from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
     from sift3d_torch.kernels.resample import double_size
-    from sift3d_torch.pipeline import pyramid
+    from sift3d_torch.pipeline import features, pyramid
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import repeatability, synthetic_volume
 
@@ -925,9 +1127,10 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
         "extrema_mask": extrema_cuda.extrema_mask,
         "blur3d": gauss_cuda.blur3d,
         "dogs_extrema": extrema_cuda.dogs_extrema,
-        "sample_identity": patch_cuda.sample_identity,
+        "gather_eig": features.gather_eig,
         "hist_topk": hist_cuda.hist_topk,
-        "sample_rotated": patch_cuda.sample_rotated,
+        "rotated_goh": patch_cuda.rotated_goh,
+        "goh": patch_cuda.goh,
     }
     n = 4
     mesh = make_mesh(n, ["cuda:0"])
@@ -985,6 +1188,7 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
                             and (feats.info == single.info).all())
         desc = float((feats.desc == single.desc).all(axis=1).mean()) if same else 0.0
         d_ori = float(np.abs(feats.ori - single.ori).max()) if same else float("inf")
+        d_eig = float(np.abs(feats.eigs - single.eigs).max()) if same else float("inf")
         key_rows = int(feats.eig_mask(cfg.eig_threshold).sum())
         print(
             f"phase9 spatial {label} {tuple(img.shape)} on {n} shards of cuda:0, {k} of {n_oct} "
@@ -992,11 +1196,12 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
             f"{walls!r} (extract_features {single_walls!r}); {len(feats)} features, {key_rows} .key "
             f"rows; extract_features {len(single)}; "
             f"sharded octaves' gathered stacks and masks bit-equal {equal}; equal locations, scales "
-            f"and flags {geo}; identical descriptors {desc!r}; max orientation diff {d_ori!r}; device "
+            f"and flags {geo}; identical descriptors {desc!r}; max orientation diff {d_ori!r}, "
+            f"eigenvalue diff {d_eig!r} (exact); device "
             f"peak {peak} B (extract_features {single_peak} B); per shard: octave-0 pyramid "
             f"{shard_bytes} B, feature-stage Gaussian slab {slab_bytes} B; launches {json.dumps(launches)}"
         )
-        ok = (all(equal) and len(equal) == k and geo and desc >= 0.99 and d_ori <= 1e-3
+        ok = (all(equal) and len(equal) == k and geo and desc == 1.0 and d_ori == 0.0 and d_eig == 0.0
               and launches["extrema_mask"] == n * k and launches["dogs_extrema"] == n_oct - k
               and min(launches.values()) > 0)
         if label == "-2+":
@@ -1012,12 +1217,13 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     same = len(on_gpu) == len(on_cpu) > 0
     rep = (repeatability(on_gpu, on_cpu)[0], repeatability(on_cpu, on_gpu)[0]) if same else (0.0, 0.0)
     desc = float((on_gpu.desc == on_cpu.desc).all(axis=1).mean()) if same else 0.0
+    d_ori = float(np.abs(on_gpu.ori - on_cpu.ori).max()) if same else float("inf")
     print(
         f"phase9 spatial card vs cpu on synthetic_volume(64), 2 of 4 octaves sharded over {n} "
         f"shards: counts {len(on_gpu)} / {len(on_cpu)}; repeatability {rep!r}; identical "
-        f"descriptors {desc!r}"
+        f"descriptors {desc!r}; max orientation diff {d_ori!r} (exact)"
     )
-    if not (same and rep == (1.0, 1.0) and desc >= 0.99):
+    if not (same and rep == (1.0, 1.0) and desc == 1.0 and d_ori == 0.0):
         raise AssertionError("spatial on the card disagrees with spatial on the CPU")
 
     count = torch.cuda.device_count()
@@ -1040,6 +1246,29 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     return first
 
 
+# profiler names of the kernels whose wrapper is named otherwise
+TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",),
+               "rotated_goh": ("::goh_kernel<true>",), "goh": ("::goh_kernel<false>",)}
+
+
+def stage_marks():
+    """A timer for extract_features that opens a torch.profiler range
+    "stage:<name>" around each stage, without synchronizing, and counts the
+    stage's calls (device_profile counts the launches in each range)."""
+    import torch
+
+    from sift3d_torch.utils.timing import StageTimer
+
+    class StageMarks(StageTimer):
+        @contextlib.contextmanager
+        def stage(self, name: str):
+            self.counts[name] += 1
+            with torch.profiler.record_function(f"stage:{name}"):
+                yield
+
+    return StageMarks(enabled=False)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1053,6 +1282,7 @@ def main() -> int:
     from sift3d_torch.core.device import resolve_device
     from sift3d_torch.io import keyfile, nifti
     from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.pipeline import features
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import (
         repeatability, synthetic_blob_texture, synthetic_volume,
@@ -1069,9 +1299,10 @@ def main() -> int:
         f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name})"
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
-                              "dogs_extrema", "extrema_mask"))
+                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
-          f"K1, K6: {json.dumps(redesigned)}")
+          f"K1, K6, the fused K2 (identity_eig_kernel) and the fused K4 (goh_kernel<1> sampling, "
+          f"<0> on given patches): {json.dumps(redesigned)}")
     spills = sorted(k for k, v in nvcc_report(("",)).items() if v[2] or v[3])
     if spills:
         print(f"phase1 warning: kernels that spill registers: {spills}")
@@ -1083,9 +1314,10 @@ def main() -> int:
     wrappers = {
         "blur3d": gauss_cuda.blur3d,
         "dogs_extrema": extrema_cuda.dogs_extrema,
-        "sample_identity": patch_cuda.sample_identity,
+        "gather_eig": features.gather_eig,
         "hist_topk": hist_cuda.hist_topk,
-        "sample_rotated": patch_cuda.sample_rotated,
+        "rotated_goh": patch_cuda.rotated_goh,
+        "goh": patch_cuda.goh,
     }
     extract_features(vol, cfg, device=dev)  # warm-up (cuBLAS handles, caches)
     timer = StageTimer(enabled=True)
@@ -1111,10 +1343,9 @@ def main() -> int:
         raise AssertionError(f"bad features: finite={finite}, descriptors are ranks={ranks_ok}")
     # K8 and K9 have no caller on the main path (nor in the JAX package):
     # their own path is their entry points, here on T1's primary histograms
-    from sift3d_torch.pipeline import features
-
-    _, _, in_bounds, patches = features.gather_stage(*dogs_stack_rows(vol, cfg), tuple(cfg.level_sigmas()))
-    pn, _, _, eig_keep = features.eig_stage(patches, cfg)
+    _, _, in_bounds, pn, _, _, eig_keep = features.gather_eig(
+        *dogs_stack_rows(vol, cfg), tuple(cfg.level_sigmas()), cfg
+    )
     e3, wgt = features.sphere_edges(pn[in_bounds & eig_keep])
     centred = [u + 0.5 for u in features.splat_coords(e3)]  # the JAX functions' 0.5 centres
     band = features.ori_hist_band(cfg, dev)
@@ -1137,7 +1368,7 @@ def main() -> int:
     if not fin or min(entry_launches.values()) <= 0:
         raise AssertionError(f"the K8/K9 entry points did not run their kernels: {entry_launches}")
     launches.update({k: entry_launches[k] for k in ("splat_histogram_raw", "smooth_histogram_peaks")})
-    del patches, pn, e3, wgt, centred, smoothed, hb, pk
+    del pn, e3, wgt, centred, smoothed, hb, pk
 
     walls = []
     for _ in range(5):
@@ -1147,17 +1378,18 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    prof = device_profile(lambda: extract_features(vol, cfg, device=dev))
+    marks = stage_marks()
+    prof = device_profile(lambda: extract_features(vol, cfg, device=dev, timer=marks))
     if prof is None:
         print(f"phase4 wall_ms {walls!r} (median {wall!r}); device time not measured (no device events)")
     else:
-        busy, span, n_dev, n_launch, per_name = prof
+        busy, span, n_dev, n_launch, per_name, per_stage = prof
         ours = {}
         for name in wrappers:
             # K7 launches blur_xy_kernel and blur_col_kernel, or blur3d_small_kernel
-            hits = [v for k, v in per_name.items()
-                    if f"::{name}_kernel" in k or (name == "blur3d" and "::blur" in k)]
+            hits = [v for k, v in per_name.items() if any(tag in k for tag in TRACE_NAMES.get(name, (f"::{name}_kernel",)))]
             ours[name] = [sum(n for n, _ in hits), round(sum(ms for _, ms in hits), 4)]
+        stage_launches = {k: [v, marks.counts[k]] for k, v in per_stage.items()}
         top = {name: [n, round(ms, 4)] for name, (n, ms) in list(per_name.items())[:10]}
         k7 = {}  # K7's kernels by template instance
         for k, (n, ms) in per_name.items():
@@ -1167,7 +1399,8 @@ def main() -> int:
                 k7[m.group(1)] = [n0 + n, round(ms0 + ms, 4)]
         print(
             f"phase4 wall_ms {walls!r} (median {wall!r}); profiled: device busy {busy!r} ms in "
-            f"{n_dev} device events, {n_launch} launch calls, trace span {span!r} ms; idle share "
+            f"{n_dev} device events, {n_launch} launch calls ([launch calls, stage calls] by stage "
+            f"{json.dumps(stage_launches)}), trace span {span!r} ms; idle share "
             f"{1 - busy / wall!r} of the unprofiled median wall, {1 - busy / span!r} of the span; "
             f"device [events, ms] of the port's kernels {json.dumps(ours)} (K7 by kernel "
             f"{json.dumps(k7)}), of the "
@@ -1181,13 +1414,15 @@ def main() -> int:
     rep_cg, _ = repeatability(on_cpu, on_gpu)
     same = len(on_gpu) == len(on_cpu)
     desc_eq = float((on_gpu.desc == on_cpu.desc).all(axis=1).mean()) if same and len(on_gpu) else 0.0
-    geo = float(np.abs(on_gpu.xyz - on_cpu.xyz).max()) if same and len(on_gpu) else float("inf")
+    diffs = {k: float(np.abs(getattr(on_gpu, k) - getattr(on_cpu, k)).max()) if same and len(on_gpu)
+             else float("inf") for k in ("xyz", "scale", "ori", "eigs")}
     print(
         f"phase5 card vs cpu on synthetic_volume(64): counts {len(on_gpu)} / {len(on_cpu)}; "
         f"repeatability {rep_gc!r} / {rep_cg!r}; identical descriptors {desc_eq!r}; "
-        f"max xyz diff {geo!r}"
+        f"max diff {json.dumps(diffs)} (exact)"
     )
-    if not (same and len(on_gpu) > 0 and rep_gc == 1.0 and rep_cg == 1.0 and desc_eq >= 0.99):
+    if not (same and len(on_gpu) > 0 and rep_gc == 1.0 and rep_cg == 1.0 and desc_eq == 1.0
+            and max(diffs.values()) == 0.0):
         raise AssertionError("the port on the card disagrees with the port on the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1202,6 +1437,7 @@ def main() -> int:
         card_key, cpu_key = (keyfile.read_text(os.path.join(tmp, f))[0] for f in ("card.key", "cpu.key"))
         with open(os.path.join(tmp, "card.key")) as a, open(os.path.join(tmp, "cpu.key")) as b:
             lines_differ = sum(x != y for x, y in zip(a, b))
+        key_eq = same_bytes(os.path.join(tmp, "card.key"), os.path.join(tmp, "cpu.key"))
     same = len(card_key) == len(cpu_key)
     geo_eq = same and bool((card_key.xyz == cpu_key.xyz).all() and (card_key.scale == cpu_key.scale).all())
     desc_eq = same and bool((card_key.desc == cpu_key.desc).all())
@@ -1210,14 +1446,16 @@ def main() -> int:
     print(
         f"phase6 CLI (no flags) on {dev}: rc {rc_card}, {len(card_key)} .key rows, launches "
         f"{json.dumps(cli_launches)}; CLI on the CPU: rc {rc_cpu}, {len(cpu_key)} rows; "
-        f"{lines_differ} lines differ; equal locations and scales {geo_eq}, descriptors {desc_eq}; "
-        f"max orientation diff {d_ori!r}, max eigenvalue diff {d_eig!r}"
+        f"{lines_differ} lines differ, .key files byte-identical {key_eq}; equal locations and scales "
+        f"{geo_eq}, descriptors {desc_eq}; max orientation diff {d_ori!r}, max eigenvalue diff {d_eig!r}"
     )
-    if not (rc_card == 0 and rc_cpu == 0 and min(cli_launches.values()) > 0 and geo_eq and desc_eq):
+    if not (rc_card == 0 and rc_cpu == 0 and min(cli_launches.values()) > 0 and key_eq):
         raise AssertionError("the CLI did not run the kernels on the card, or disagrees with the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
-        rows_of = cli_full_width(vol_np, wrappers, tmp)
+        rows_of, bn_launches = cli_full_width(vol_np, dict(wrappers, sample_rotated=patch_cuda.sample_rotated), tmp)
+    # K4's patch mode runs on the BRIEF path only: its launches are -bn's
+    launches["sample_rotated"] = bn_launches["sample_rotated"]
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]

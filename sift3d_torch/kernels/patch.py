@@ -21,7 +21,7 @@ import math
 import numpy as np
 import torch
 
-from sift3d_torch.core.numerics import sqrt
+from sift3d_torch.core.numerics import acos, cos, sqrt, tree_sum
 
 PATCH_DIM = 11
 PATCH_RAD = PATCH_DIM // 2
@@ -96,11 +96,15 @@ def rbox_max_scale(box: int) -> float:
 
 
 def normalize_patches(patches: torch.Tensor) -> torch.Tensor:
-    """Subtract mean, unit L2 norm (Feature3D::NormalizeData)."""
+    """Subtract mean, unit L2 norm (Feature3D::NormalizeData). Both sums
+    are :func:`tree_sum`s, so a row comes out the same on every device, in
+    any batch, and in the fused kernels (``csrc/common.cuh``)."""
     n = patches.shape[0]
     flat = patches.reshape(n, -1)
-    centered = flat - flat.mean(dim=1, keepdim=True)
-    norm = sqrt((centered * centered).sum(dim=1, keepdim=True))
+    # a tensor divisor: PyTorch on CUDA multiplies by a scalar's reciprocal
+    count = torch.full((n, 1), float(flat.shape[1]), dtype=flat.dtype, device=flat.device)
+    centered = flat - tree_sum(flat)[:, None] / count
+    norm = sqrt(tree_sum(centered * centered))[:, None]
     return (centered / torch.where(norm > 0, norm, torch.ones_like(norm))).reshape(patches.shape)
 
 
@@ -150,9 +154,9 @@ def sym_eigs_3x3(a: torch.Tensor):
         + c02 * (c01 * c12 - c11 * c02)
     )
     r = torch.clamp(detb / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / three
-    e0 = q + 2.0 * p * torch.cos(phi)  # largest
-    e2 = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)  # smallest
+    phi = acos(r) / three
+    e0 = q + 2.0 * p * cos(phi)  # largest
+    e2 = q + 2.0 * p * cos(phi + 2.0 * math.pi / 3.0)  # smallest
     e1 = 3.0 * q - e0 - e2
     # exactly diagonal-dominant degenerate case (p2 ~ 0): all eigs = q
     degen = p2 < 1e-30
@@ -244,12 +248,17 @@ def structure_tensor_eigs(patches_norm: torch.Tensor):
     """Gradient outer-product over the inscribed sphere -> sorted eigs/vecs.
 
     Port of determineOrientation3D (MultiScale.cpp:2541-2607): returns
-    (eigs [C,3] descending, ori [C,3,3] with eigenvectors in COLUMNS).
+    (eigs [C,3] descending, ori [C,3,3] with eigenvectors in COLUMNS). Each
+    of the six distinct entries is a :func:`tree_sum` of sphere-masked
+    gradient products, as the fused kernel sums them.
     """
     grads = patch_gradients(patches_norm)  # [C, 3, z, y, x]
     m = torch.from_numpy(sphere_mask()).to(device=patches_norm.device, dtype=patches_norm.dtype)
     flat = (grads * m).reshape(grads.shape[0], 3, -1)
-    tensor = torch.bmm(flat, flat.transpose(1, 2))  # [C, 3, 3]
+    t = {(i, j): tree_sum(flat[:, i] * flat[:, j]) for i in range(3) for j in range(i, 3)}
+    tensor = torch.stack(
+        [torch.stack([t[min(i, j), max(i, j)] for j in range(3)], -1) for i in range(3)], -2
+    )  # [C, 3, 3]
     return sym_eigs_3x3(tensor)
 
 

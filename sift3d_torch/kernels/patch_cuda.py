@@ -1,12 +1,18 @@
-"""K2 and K4: 11^3 patch samplers (CUDA kernels + plain forms).
+"""The 11^3 patch samplers (K2's and K4's plain forms, K4's CUDA kernel)
+and the fused K4.
 
-K2 :func:`sample_identity` replaces the Pallas kernel ``sift3d.kernels.
-patch.sample_patches_identity_slab`` (``csrc/sample_identity.cu``); K4
-:func:`sample_rotated` replaces ``sample_patches_rotated_slab`` and, for
-the large-scale tail, ``sample_patches_rotated_pallas`` (K5) in one kernel
-(``csrc/sample_rotated.cu``).
+K2's identity sampler, :func:`sample_identity_plain`, is the plain form of
+the Pallas kernel ``sift3d.kernels.patch.sample_patches_identity_slab``; on
+the card it runs inside the fused K2 (``features.gather_eig``,
+``csrc/identity_eig.cu``). K4 :func:`sample_rotated` replaces
+``sample_patches_rotated_slab`` and, for the large-scale tail,
+``sample_patches_rotated_pallas`` (K5) in one kernel
+(``csrc/sample_rotated.cu``, the BRIEF descriptors' patches). The fused K4,
+:func:`rotated_goh` (and :func:`goh` on given patches), samples a rotated
+patch and computes its GoH-64 rank descriptor in one block
+(``csrc/rotated_goh.cu``); the GoH path runs it.
 
-Both read the full level volume with the _interp_coord rule (no boxes),
+Both samplers read the full level volume with the _interp_coord rule (no boxes),
 so they carry no scale bound. The volume may be a Z slab of a deeper one
 (the Z-sharded path): ``z0`` is the global index of its first plane and
 ``depth`` the global Z. Sample coordinates stay global, so they clamp and
@@ -22,8 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from sift3d_torch.kernels import cuda_lib
-from sift3d_torch.kernels.patch import PATCH_DIM, PATCH_RAD, invert_3x3, patch_grid
+from sift3d_torch.kernels import cuda_lib, descriptor
+from sift3d_torch.kernels.patch import PATCH_DIM, PATCH_RAD, invert_3x3, normalize_patches, patch_grid
 from sift3d_torch.kernels.resample import interp_coord
 
 
@@ -133,25 +139,6 @@ def _slab_args(gstack, z0: int, depth):
     return int(z0), depth
 
 
-def sample_identity(gstack, lvl, centers, scales, z0: int = 0, depth=None) -> torch.Tensor:
-    """K2: identity-orientation 11^3 patches (see sample_identity_plain).
-    Rows whose level is outside [0, L) come back as NaN from the kernel."""
-    if cuda_lib.route(gstack) == "plain":
-        return sample_identity_plain(gstack, lvl, centers, scales, z0, depth)
-    r = _check_rows(gstack, lvl, centers, scales)
-    z0, depth = _slab_args(gstack, z0, depth)
-    nl, zd, yd, xd = gstack.shape
-    out = torch.empty((r, PATCH_DIM, PATCH_DIM, PATCH_DIM), dtype=torch.float32, device=gstack.device)
-    if r == 0:
-        return out
-    cuda_lib.launch(
-        "sift3d_sample_identity", gstack, lvl, centers, scales, out, r, nl, zd, yd, xd, z0, depth,
-        device=gstack.device,
-    )
-    sample_identity.launches += 1
-    return out
-
-
 def sample_rotated(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
     """K4: rotated 11^3 patches (see sample_rotated_plain)."""
     if cuda_lib.route(gstack) == "plain":
@@ -173,5 +160,63 @@ def sample_rotated(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) 
     return out
 
 
-sample_identity.launches = 0
+def goh_plain(patches) -> torch.Tensor:
+    """GoH-64 rank descriptors of raw patches [R, 11, 11, 11]: normalize,
+    gradient orientation histogram, positive normalization, rank; uint8
+    [R, 64] (featExtract.cpp:477-499). The plain version of :func:`goh`."""
+    d = descriptor.normalize_positive(descriptor.goh_descriptor(normalize_patches(patches)))
+    return descriptor.rank_normalize(d).to(torch.uint8)
+
+
+def rotated_goh_plain(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
+    """GoH-64 rank descriptors of the rotated patches of
+    :func:`sample_rotated_plain`; uint8 [R, 64]."""
+    return goh_plain(sample_rotated_plain(gstack, lvl, centers, scales, oris, z0, depth))
+
+
+def _goh_out(r: int, device) -> torch.Tensor:
+    return torch.empty((r, 64), dtype=torch.uint8, device=device)
+
+
+def goh(patches) -> torch.Tensor:
+    """Fused K4 on already-sampled patches [R, 11, 11, 11] (the unoriented
+    rows): :func:`goh_plain` in one launch, one block per row
+    (``csrc/rotated_goh.cu``)."""
+    if cuda_lib.route(patches) == "plain":
+        return goh_plain(patches)
+    cuda_lib.require_cuda(patches, "patches", torch.float32, 4)
+    if tuple(patches.shape[1:]) != (PATCH_DIM,) * 3:
+        raise ValueError(f"patches must be [R, 11, 11, 11], got {tuple(patches.shape)}")
+    out = _goh_out(patches.shape[0], patches.device)
+    if patches.shape[0]:
+        cuda_lib.launch("sift3d_goh", patches, out, patches.shape[0], device=patches.device)
+        goh.launches += 1
+    return out
+
+
+def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
+    """Fused K4: rotated 11^3 patches (K4's sampler) and their GoH-64 rank
+    descriptors in one launch, one block per row; the patch stays in the
+    block's shared memory. Arguments as :func:`sample_rotated`; returns
+    uint8 [R, 64] as :func:`rotated_goh_plain`, which runs for CPU tensors."""
+    if cuda_lib.route(gstack) == "plain":
+        return rotated_goh_plain(gstack, lvl, centers, scales, oris, z0, depth)
+    r = _check_rows(gstack, lvl, centers, scales)
+    z0, depth = _slab_args(gstack, z0, depth)
+    cuda_lib.require_cuda(oris, "oris", torch.float32, 3)
+    if oris.shape != (r, 3, 3) or oris.device != gstack.device:
+        raise ValueError(f"oris must be [{r}, 3, 3] on {gstack.device}, got {tuple(oris.shape)}")
+    nl, zd, yd, xd = gstack.shape
+    out = _goh_out(r, gstack.device)
+    if r:
+        cuda_lib.launch(
+            "sift3d_rotated_goh", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
+            depth, device=gstack.device,
+        )
+        rotated_goh.launches += 1
+    return out
+
+
 sample_rotated.launches = 0
+goh.launches = 0
+rotated_goh.launches = 0

@@ -16,8 +16,12 @@ exist for XLA's static shapes and are dropped). The reference call stack
         eig threshold reject           :1748-1769
         determineCanonicalOrientation3D:2722  (spherical histogram peaks)
 
-The samplers (K2, K4) and the histogram top-k (K3) are CUDA kernels on a
-CUDA device and their plain versions on the CPU.
+On a CUDA device three kernels carry the stage, and their plain versions
+run on the CPU: the fused K2 (:func:`gather_eig`: refinement, identity
+patch, normalization, structure tensor, eigen test), the histogram top-k
+K3, and the fused K4 (``patch_cuda.rotated_goh`` and ``goh``: rotated
+patch and GoH descriptor). The BRIEF descriptors take K4's patches
+(``sample_rotated``) into eager code.
 
 The stage also runs on a Z slab of an octave (the Z-sharded path,
 ``sift3d_torch.dist.spatial``): the Gaussian stack and the DoGs may each
@@ -37,6 +41,7 @@ import torch
 from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.core.featureset import INFO_FLAG_MIN0MAX1, INFO_FLAG_REORIENT
 from sift3d_torch.core.numerics import fma, sqrt
+from sift3d_torch.kernels import cuda_lib
 from sift3d_torch.kernels import descriptor as desc_kernels
 from sift3d_torch.kernels.extrema import quadratic_interp_1d
 from sift3d_torch.kernels.gauss import gaussian_kernel_1d
@@ -49,7 +54,13 @@ from sift3d_torch.kernels.patch import (
     sphere_mask,
     structure_tensor_eigs,
 )
-from sift3d_torch.kernels.patch_cuda import sample_identity, sample_rotated
+from sift3d_torch.kernels.patch_cuda import (
+    _slab_args,
+    goh,
+    rotated_goh,
+    sample_identity_plain,
+    sample_rotated,
+)
 
 
 def candidate_table(mask: torch.Tensor):
@@ -71,7 +82,8 @@ def candidate_table(mask: torch.Tensor):
 
 def gather_stage(gstack, dogs, lvl, zyx, sigmas: Sequence[float], *, gz0: int = 0, dz0: int = 0,
                  depth=None):
-    """Refine candidates and sample their identity-orientation patches.
+    """Refine candidates and sample their identity-orientation patches (K2's
+    plain sampler): the first half of :func:`gather_eig_plain`.
 
     gstack [6, Z, Y, X] / dogs [5, Z, Y, X] of one octave, or Z slabs of
     it starting at global planes gz0 / dz0 of an octave `depth` planes deep
@@ -111,7 +123,7 @@ def gather_stage(gstack, dogs, lvl, zyx, sigmas: Sequence[float], *, gz0: int = 
     rad_max = torch.floor(2.0 * scale + 2.0)[:, None]
     hi = torch.tensor([xd, yd, depth], dtype=f32, device=dogs.device)
     in_bounds = ((xyz - rad_max >= 0.0) & (xyz + rad_max < hi)).all(dim=-1)
-    patches = sample_identity(gstack, lvl.to(torch.int32), xyz, scale, gz0, depth)
+    patches = sample_identity_plain(gstack, lvl.to(torch.int32), xyz, scale, gz0, depth)
     return xyz, scale, in_bounds, patches
 
 
@@ -128,6 +140,59 @@ def eig_stage(patches, cfg: SiftConfig):
         p = eigs[:, 0] * eigs[:, 1] * eigs[:, 2]
         eig_keep = s * s * s < cfg.eig_threshold * p
     return pn, eigs, eig_ori, eig_keep
+
+
+def gather_eig_plain(gstack, dogs, lvl, zyx, sigmas: Sequence[float], cfg: SiftConfig, *,
+                     gz0: int = 0, dz0: int = 0, depth=None):
+    """The plain version of the fused K2 (:func:`gather_eig`):
+    :func:`gather_stage`, then :func:`eig_stage`. Returns (xyz, scale,
+    in_bounds, pn, eigs, ori, eig_keep)."""
+    xyz, scale, in_bounds, patches = gather_stage(
+        gstack, dogs, lvl, zyx, sigmas, gz0=gz0, dz0=dz0, depth=depth
+    )
+    return (xyz, scale, in_bounds, *eig_stage(patches, cfg))
+
+
+def gather_eig(gstack, dogs, lvl, zyx, sigmas: Sequence[float], cfg: SiftConfig, *,
+               gz0: int = 0, dz0: int = 0, depth=None):
+    """Fused K2: per candidate, the refinement, the 11^3 identity patch,
+    its normalization, structure tensor, eigendecomposition and keep rule,
+    in one launch with one block per row (``csrc/identity_eig.cu``); the
+    raw patch never leaves the block. Arguments and results as
+    :func:`gather_eig_plain`, which runs for CPU tensors."""
+    if cuda_lib.route(gstack) == "plain":
+        return gather_eig_plain(gstack, dogs, lvl, zyx, sigmas, cfg, gz0=gz0, dz0=dz0, depth=depth)
+    lvl, zyx = lvl.contiguous(), zyx.contiguous()  # zyx: a column slice of the candidate table
+    cuda_lib.require_cuda(gstack, "gstack", torch.float32, 4)
+    cuda_lib.require_cuda(dogs, "dogs", torch.float32, 4)
+    cuda_lib.require_cuda(lvl, "lvl", torch.int64, 1)
+    cuda_lib.require_cuda(zyx, "zyx", torch.int64, 2)
+    nl, zg, yd, xd = gstack.shape
+    nd, zd = dogs.shape[:2]
+    r = lvl.shape[0]
+    if dogs.shape[2:] != (yd, xd) or zyx.shape != (r, 3) or nd > min(len(sigmas), 8):
+        raise ValueError(f"gstack {tuple(gstack.shape)}, dogs {tuple(dogs.shape)}, lvl [{r}], zyx "
+                         f"{tuple(zyx.shape)} and {len(sigmas)} sigmas do not fit together")
+    gz0, depth = _slab_args(gstack, gz0, zd if depth is None else depth)
+    dev = gstack.device
+    if not dogs.device == lvl.device == zyx.device == dev:
+        raise ValueError(f"dogs, lvl and zyx must be on {dev}")
+    sig = torch.tensor(list(sigmas)[:nd], dtype=torch.float32)  # host memory: passed by value
+    f32 = dict(dtype=torch.float32, device=dev)
+    xyz, scale = torch.empty((r, 3), **f32), torch.empty((r,), **f32)
+    pn = torch.empty((r, PATCH_DIM, PATCH_DIM, PATCH_DIM), **f32)
+    eigs, ori = torch.empty((r, 3), **f32), torch.empty((r, 3, 3), **f32)
+    in_bounds, keep = (torch.empty((r,), dtype=torch.bool, device=dev) for _ in range(2))
+    if r:
+        cuda_lib.launch(
+            "sift3d_identity_eig", gstack, dogs, lvl, zyx, sig, xyz, scale, pn, eigs, ori, in_bounds,
+            keep, float(cfg.eig_threshold), r, nl, zg, nd, zd, yd, xd, gz0, int(dz0), depth, device=dev,
+        )
+        gather_eig.launches += 1
+    return xyz, scale, in_bounds, pn, eigs, ori, keep
+
+
+gather_eig.launches = 0
 
 
 # The canonical stage's 3-vector algebra rounds as the compiled JAX package
@@ -283,13 +348,12 @@ def reoriented_slots(ori_valid, cfg: SiftConfig):
 def descriptor_stage(patches, variant: str = "goh", method: int = 2, blur_sigma: float = 0.95):
     """NormalizeData + descriptor + rank normalization (featExtract.cpp:477-499);
     [C, 11, 11, 11] -> [C, 64] ranks 0..63 as uint8. variant: "goh" (the
-    default), or "brief", "rrief", "nrrief" with pair table `method` and
-    pre-blur `blur_sigma`."""
-    pn = normalize_patches(patches)
+    default; the fused K4 on a CUDA tensor), or "brief", "rrief", "nrrief"
+    with pair table `method` and pre-blur `blur_sigma`."""
     if variant == "goh":
-        d = desc_kernels.normalize_positive(desc_kernels.goh_descriptor(pn))
-    else:
-        d = desc_kernels.brief_descriptor(pn, variant=variant, method=method, blur_sigma=blur_sigma)
+        return goh(patches.contiguous())
+    pn = normalize_patches(patches)
+    d = desc_kernels.brief_descriptor(pn, variant=variant, method=method, blur_sigma=blur_sigma)
     return desc_kernels.rank_normalize(d).to(torch.uint8)
 
 
@@ -323,10 +387,9 @@ def emit_candidates(
     if lvl.shape[0] == 0:
         return None
     with timer.stage("gather_eig"):
-        xyz, scale, in_bounds, patches = gather_stage(
-            gstack, dogs, lvl, zyx, sigmas, gz0=gz0, dz0=dz0, depth=depth
+        xyz, scale, in_bounds, pn, eigs, eig_ori, eig_keep = gather_eig(
+            gstack, dogs, lvl, zyx, sigmas, cfg, gz0=gz0, dz0=dz0, depth=depth
         )
-        pn, eigs, eig_ori, eig_keep = eig_stage(patches, cfg)
         kidx = torch.nonzero(in_bounds & eig_keep)[:, 0]
     if kidx.shape[0] == 0:
         return None
@@ -337,15 +400,16 @@ def emit_candidates(
         row, slot = reoriented_slots(o["ori_valid"], cfg)
     s = cfg.max_primary_orientations * cfg.max_secondary_orientations
     ori_r = o["ori"].reshape(-1, s, 3, 3)[row, slot]
-    with timer.stage("rotated_patches"):
-        patches_r = sample_rotated(
-            gstack, lvl[row].to(torch.int32), xyz[row], scale[row], ori_r, gz0, depth
-        )
+    rows_r = (gstack, lvl[row].to(torch.int32), xyz[row], scale[row], ori_r.contiguous(), gz0, depth)
+    args = (descriptor, cfg.brief_method, cfg.brief_blur_sigma)
+    if descriptor != "goh":
+        with timer.stage("rotated_patches"):
+            patches_r = sample_rotated(*rows_r)
     with timer.stage("descriptors"):
-        desc = torch.cat([
-            descriptor_stage(p, descriptor, cfg.brief_method, cfg.brief_blur_sigma)
-            for p in (pn, patches_r)
-        ])
+        desc_u = descriptor_stage(pn, *args)
+        # GoH: the fused K4 samples the rotated patches and describes them in one launch
+        desc_r = rotated_goh(*rows_r) if descriptor == "goh" else descriptor_stage(patches_r, *args)
+        desc = torch.cat([desc_u, desc_r])
     info_u = torch.where(sign > 0, INFO_FLAG_MIN0MAX1, 0).to(torch.int64)
     order = kidx if rank is None else rank[kidx]
     return dict(

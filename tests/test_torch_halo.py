@@ -107,8 +107,8 @@ def test_samplers_on_a_slab_equal_the_whole_volume(rng):
     z0, z1 = 5, 35  # every read of these rows lies in [z0, z1)
     slab = g[:, z0:z1].contiguous()
     assert torch.equal(
-        patch_cuda.sample_identity(slab, lvl, centers, scales, z0, 40),
-        patch_cuda.sample_identity(g, lvl, centers, scales),
+        patch_cuda.sample_identity_plain(slab, lvl, centers, scales, z0, 40),
+        patch_cuda.sample_identity_plain(g, lvl, centers, scales),
     )
     assert torch.equal(
         patch_cuda.sample_rotated(slab, lvl, centers, scales, oris.contiguous(), z0, 40),

@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda
+from sift3d_torch.pipeline import features
 
 torch.set_num_threads(1)
 
@@ -53,7 +55,8 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize(
-    "source", ["dogs_extrema.cu", "sample_identity.cu", "hist_topk.cu", "sample_rotated.cu", "blur3d.cu"]
+    "source", ["dogs_extrema.cu", "hist_topk.cu", "sample_rotated.cu", "blur3d.cu", "identity_eig.cu",
+               "rotated_goh.cu"]
 )
 def test_cuda_sources_exist(source):
     text = (PACKAGE / "csrc" / source).read_text()
@@ -83,13 +86,31 @@ def _inputs(rng):
     return gs, lvl, centers, scales, q.contiguous(), hist, band
 
 
+def _candidates(gs):
+    """The fused K2's inputs on gs: DoGs of uniform [0, 1) with each
+    candidate voxel raised to 2 on its level (a strict peak, so the
+    refinement stays near the voxel), its levels around it to 1.5."""
+    dogs = torch.rand(5, *gs.shape[1:], generator=torch.Generator().manual_seed(3))
+    zyx = torch.tensor([[3, 4, 5], [6, 7, 8], [8, 9, 12], [5, 10, 4]])
+    lvl = torch.tensor([1, 2, 3, 2])
+    for (z, y, x), lv in zip(zyx.tolist(), lvl.tolist()):
+        dogs[lv, z, y, x] = 2.0
+        dogs[lv - 1, z, y, x] = dogs[lv + 1, z, y, x] = 1.5
+    return dogs.to(gs.device), lvl.to(gs.device), zyx.to(gs.device)
+
+
 def _calls(gs, lvl, centers, scales, oris, hist, band):
+    cfg = SiftConfig()
     return {
-        "dogs_extrema": (extrema_cuda.dogs_extrema, extrema_cuda.dogs_extrema_plain, (gs,)),
-        "sample_identity": (
-            patch_cuda.sample_identity, patch_cuda.sample_identity_plain,
-            (gs, lvl, centers, scales),
+        "gather_eig": (
+            features.gather_eig, features.gather_eig_plain,
+            (gs, *_candidates(gs), tuple(cfg.level_sigmas()), cfg),
         ),
+        "rotated_goh": (
+            patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain, (gs, lvl, centers, scales, oris),
+        ),
+        "goh": (patch_cuda.goh, patch_cuda.goh_plain, (gs[:, :11, :11, :11].contiguous(),)),
+        "dogs_extrema": (extrema_cuda.dogs_extrema, extrema_cuda.dogs_extrema_plain, (gs,)),
         "sample_rotated": (
             patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain,
             (gs, lvl, centers, scales, oris),
@@ -141,7 +162,7 @@ def test_other_devices_raise(rng):
 def test_library_path_is_keyed_on_the_sources():
     path = cuda_lib.library_path()
     assert path.parent.parent == cuda_lib.BUILD_DIR
-    assert len(cuda_lib.sources()) >= 6  # five kernels + the shared header
+    assert len(cuda_lib.sources()) >= 7  # six kernel sources + the shared header
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
 
 

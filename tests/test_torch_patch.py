@@ -18,7 +18,7 @@ from sift3d.core.config import SiftConfig
 from sift3d.kernels import patch as jx_patch
 from sift3d.pipeline import features as jx_features
 from sift3d_torch.kernels import patch as tx_patch
-from sift3d_torch.kernels.patch_cuda import sample_identity, sample_rotated
+from sift3d_torch.kernels.patch_cuda import sample_identity_plain, sample_rotated
 from sift3d_torch.pipeline import features as tx_features
 from sift3d_torch.utils.synthetic import synthetic_blob_texture
 
@@ -56,7 +56,7 @@ def test_identity_sampler_matches_boxed(rng, gstack):
     want = np.asarray(jx_patch.sample_patches_identity_boxed(
         jnp.asarray(gstack), jnp.asarray(lvl), jnp.asarray(centers), jnp.asarray(scales)
     ))
-    got = sample_identity(
+    got = sample_identity_plain(
         torch.from_numpy(gstack), torch.from_numpy(lvl), torch.from_numpy(centers),
         torch.from_numpy(scales),
     ).numpy()
