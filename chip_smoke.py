@@ -90,7 +90,24 @@ Phases, each printing one line:
      K7, the fused K2, K3 and the fused K4 > 0); then spatial on the card
      against spatial on the CPU on synthetic_volume(64) (equal rows,
      orientations and descriptors), and over every card when there are two
-     or more.
+     or more;
+ 10. featmatch --all-to-all at full width on the card: 32 volumes on the
+     182x218x182 grid (image 0 the blob texture, images 1-31 copies rolled
+     by distinct integer shifts of at most 4 voxels plus seeded noise),
+     extracted on the card and written as .key files, matched twice: the
+     walls, [ms, launches of M1-M3] by stage (read, ratio_match and hough,
+     the pairwise path, and group_vote), every pair's translation within 1
+     voxel of its shift and its scale within 5% of 1;
+ 11. the featmatch CLI on the card against the CLI on the CPU for every
+     flag set of tests/test_torch_featmatch_cli.py and --refine, on its
+     40^3 fixtures: every output file byte-identical.
+Phase 2 also holds the matching kernels against their plain versions,
+exactly, with the same times, bounds and yardsticks: M1 (kNN, k = 5) over
+48,000 rows all to all (the extraction's GoH rows tiled, rows from a
+4-letter alphabet, 67-column -g rows; yardstick torch.cdist + torch.topk),
+M2 on 31 stacked query sets against a 969-row database (yardstick
+torch.cdist + the eager closed form), M3 at M = 1500 and 3000 (beside the
+device time and launches of the eager chunked scorer).
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
 or without the sift3d_torch package beside it, it exits non-zero before
@@ -736,6 +753,34 @@ def device_profile(fn):
     return busy, span, len(dev), len(launches), per_name, per_stage
 
 
+def record_kernel(results, name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None,
+                  chain=None, plain_reps=REPS):
+    """Phase 2's check of one kernel: kernel() against plain() (each a
+    tensor or a tuple of them) within tol, their median ms, the bound, the
+    library call's ms and back-to-back times; appends the kernel table's
+    row to results and raises on a disagreement."""
+    got, want = kernel(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(max_abs(g.float(), w.float()) for g, w in zip(got, want))
+    ms, plain_ms = median_ms(kernel), median_ms(plain, plain_reps)
+    bound_ms, bound_by = bound(n_bytes, flops)
+    library_ms = None if library is None else median_ms(library)
+    burst = [burst_ms(kernel), None if library is None or library_ms > 5 else burst_ms(library)]
+    replaced = "" if chain is None else f"; the eager chain it replaces {json.dumps(chain_time(chain))}"
+    print(
+        f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
+        f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
+        f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms; back to back [kernel, "
+        f"library] {burst!r} ms a call{replaced}"
+    )
+    if not err <= tol:
+        raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
+    results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=library_ms))
+
+
 def compare_kernels(vol, cfg):
     """Phase 2: every kernel against its plain version at main-path shapes.
     Returns the kernel table's rows: each kernel's times at the T1 shapes
@@ -749,28 +794,7 @@ def compare_kernels(vol, cfg):
     from sift3d_torch.pipeline import features, pyramid
 
     results = []
-
-    def record(name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None, chain=None):
-        got, want = kernel(), plain()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max(max_abs(g.float(), w.float()) for g, w in zip(got, want))
-        ms, plain_ms = median_ms(kernel), median_ms(plain)
-        bound_ms, bound_by = bound(n_bytes, flops)
-        library_ms = None if library is None else median_ms(library)
-        burst = [burst_ms(kernel), None if library is None or library_ms > 5 else burst_ms(library)]
-        replaced = "" if chain is None else f"; the eager chain it replaces {json.dumps(chain_time(chain))}"
-        print(
-            f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
-            f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
-            f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms; back to back [kernel, "
-            f"library] {burst!r} ms a call{replaced}"
-        )
-        if not err <= tol:
-            raise AssertionError(f"{name} disagrees with its plain version at {note}: {err} > {tol}")
-        results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=library_ms))
+    record = functools.partial(record_kernel, results)
 
     # K7 at the blur shapes of the paths: against cuBLAS (the plain version
     # on the card, another summation order) within 1e-6 of the peak, and
@@ -1246,6 +1270,290 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     return first
 
 
+MATCH_ROWS = 48_000  # 32 images x 1500 features: MATCHBENCH_r05.json's largest cell (its sizes only)
+HOUGH_STAGE_OPS = (34, 60, 4)  # ops a pair: the distance test, the orientation test, the scale test
+
+
+def similarity_matches(m: int, seed: int):
+    """m putative matches (pts0, pts1, s0, s1, o0, o1) of a similarity
+    (scale 1.1, 15 degrees about a random axis, a shift) with location and
+    orientation noise and a third of them relocated at random."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rot = rotation(seed)
+    o0 = np.stack([rotation(seed * 10_000 + i) for i in range(m)])
+    p0 = rng.uniform(20, 160, (m, 3))
+    s0 = rng.uniform(1.5, 8.0, m)
+    p1 = 1.1 * p0 @ rot.T + np.array([3.0, -2.0, 5.0]) + rng.normal(0, 1.0, (m, 3))
+    p1[: m // 3] = rng.uniform(20, 160, (m // 3, 3))
+    o1 = np.einsum("ij,njk->nik", rot, o0.transpose(0, 2, 1)).transpose(0, 2, 1) + rng.normal(0, 0.1, (m, 3, 3))
+    s1 = 1.1 * s0 * np.exp(rng.normal(0, 0.2, m))
+    return [np.ascontiguousarray(a, np.float32) for a in (p0, p1, s0, s1, o0, o1)]
+
+
+def compare_matching(feats, cfg, dev):
+    """Phase 2 for the matching kernels, each against its plain version on
+    the same CUDA tensors, exact: M1 (kNN) at MATCH_ROWS rows, k = 5, on the
+    extraction's GoH rows tiled, on rows from a 4-letter alphabet (tie
+    heavy) and on 67-column -g rows; M2 on 31 stacked query sets against
+    one database; M3 at M = 1500 and 3000. Returns the table's rows."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import knn_cuda
+    from sift3d_torch.match import hough, pairwise
+
+    results = []
+    record = functools.partial(record_kernel, results)
+    rng = np.random.default_rng(5)
+    n = MATCH_ROWS
+    reps = -(-n // len(feats))
+    goh = np.tile(feats.desc, (reps, 1))[:n]
+    # the -g columns: each tiled copy as another image, shifted by up to 4 voxels
+    xyz = (np.tile(feats.xyz, (reps, 1)) + np.repeat(rng.integers(-4, 5, (reps, 3)), len(feats), 0))[:n]
+    scale = np.tile(feats.scale, reps)[:n]
+    sets = {
+        "GoH rows tiled": goh,
+        "4-letter alphabet": rng.choice(np.float32([0, 1, 2, 3]), (n, 64)),
+        "-g 0.5 (67 columns)": np.concatenate([goh, 0.5 * xyz / scale[:, None]], axis=1),
+    }
+    k = cfg.knn_neighbors
+    for label, rows in sets.items():
+        x = torch.as_tensor(np.ascontiguousarray(rows), dtype=torch.float32, device=dev)
+        c = x.shape[1]
+        dist, _ = knn_cuda.knn_topk(x, x, k)
+        ties = float((dist[:, 1:] == dist[:, :-1]).float().mean())
+        record(
+            "knn_topk", "sift3d_torch/csrc/knn_topk.cu", "sift3d/match/knn.py:20",
+            lambda: knn_cuda.knn_topk(x, x, k), lambda: knn_cuda.knn_topk_plain(x, x, k),
+            0.0, f"{label}: all-to-all over {n} rows x {c}, k={k}, {ties:.3f} of neighbour pairs tied (exact)",
+            2 * n * c * 4 + n * k * 12, 2.0 * n * n * c,
+            library=lambda: torch.topk(torch.cdist(x, x), k, dim=1, largest=False), plain_reps=2,
+        )
+        del x, dist
+
+    # M2: 31 query sets of about 1000 rows (near-copies of the database's
+    # rows: a few ranks swapped, locations jittered) against one database
+    db = feats.select(np.arange(min(1000, len(feats))))
+    q = np.tile(db.desc, (31, 1))
+    swap = rng.integers(0, 64, (q.shape[0], 3, 2))
+    for a, b in swap.transpose(1, 2, 0):
+        rows = np.arange(q.shape[0])
+        q[rows, a], q[rows, b] = q[rows, b], q[rows, a]
+    put = functools.partial(torch.as_tensor, dtype=torch.float32, device=dev)
+    qt, dbt, xyzt, st = (put(np.ascontiguousarray(a)) for a in (q, db.desc, db.xyz, db.scale))
+    thr, shift = float(np.float32(cfg.ratio_compat_log_scale)), float(cfg.ratio_compat_shift)
+    nq, nd = q.shape[0], len(db)
+    record(
+        "ratio_match", "sift3d_torch/csrc/ratio_match.cu", "sift3d/match/pairwise.py:112",
+        lambda: pairwise.ratio_rows(qt, dbt, xyzt, st, thr, shift),
+        lambda: pairwise.ratio_rows_plain(qt, dbt, xyzt, st, thr, shift),
+        0.0, f"31 stacked query sets, {nq} rows, against {nd} database rows (exact)",
+        (nq + nd) * 64 * 4 + nd * 16 + nq * 12, 2.0 * nq * nd * 64,
+        library=lambda: pairwise.closed_form(torch.cdist(qt, dbt).square(), xyzt, st, thr, shift),
+    )
+
+    # M3 at the pairwise path's largest M (max_matches) and half of it
+    th = tuple(float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien))
+    for m in (1500, cfg.max_matches):
+        p0, p1, s0, s1, o0, o1 = similarity_matches(m, seed=m)
+        rots, hs = hough.hypotheses(*(torch.from_numpy(a) for a in (s0, s1, o0, o1)))
+        args = [put(a).contiguous() for a in (rots, hs, p0, p1, s0, s1, o0, o1)]
+        # the pairs each test stage reaches (the kernel skips the later
+        # tests of a pair that fails an earlier one)
+        reach = [int(hough.hough_scores_plain(*args, t).sum()) for t in
+                 ((float("inf"), th[1], float("-inf")), (float("inf"), th[1], th[2]))]
+        scores = hough.hough_scores(*args, th)
+        ops = HOUGH_STAGE_OPS[0] * m * m + HOUGH_STAGE_OPS[1] * reach[0] + HOUGH_STAGE_OPS[2] * reach[1]
+        record(
+            "hough_scores", "sift3d_torch/csrc/hough_scores.cu", "sift3d/match/hough.py:58",
+            lambda: hough.hough_scores(*args, th), lambda: hough.hough_scores_plain(*args, th),
+            0.0, f"M={m} (best score {int(scores.max())}; pairs past the distance test {reach[0]}, "
+            f"past the orientation test {reach[1]}) (exact)",
+            m * (26 + 10) * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th),
+        )
+    table = {}
+    for r in results:
+        first = table.setdefault(r["name"], r)
+        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
+    return list(table.values())
+
+
+def match_wrappers():
+    from sift3d_torch.kernels import knn_cuda
+    from sift3d_torch.match import hough, pairwise
+
+    return {"knn_topk": knn_cuda.knn_topk, "ratio_match": pairwise.ratio_rows, "hough_scores": hough.hough_scores}
+
+
+def launch_timer(wrappers):
+    """A StageTimer that also counts each wrapper's launches in each stage."""
+    from sift3d_torch.utils.timing import StageTimer
+
+    class LaunchTimer(StageTimer):
+        def __init__(self):
+            super().__init__(enabled=True)
+            self.launches = {}
+
+        @contextlib.contextmanager
+        def stage(self, name: str):
+            before = {k: w.launches for k, w in wrappers.items()}
+            with super().stage(name):
+                yield
+            got = self.launches.setdefault(name, dict.fromkeys(wrappers, 0))
+            for k, w in wrappers.items():
+                got[k] += w.launches - before[k]
+
+    return LaunchTimer()
+
+
+def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
+    """Phase 10: 32 volumes on the 182x218x182 grid (image 0 the blob
+    texture, images 1-31 copies rolled by distinct integer shifts of at
+    most 4 voxels plus seeded noise), extracted on the card and written as
+    .key files; then featmatch --all-to-all --refine on them, twice, and
+    once without --refine. Every pair's refined translation must be its
+    shift within 1 voxel and its scale 1 within 5%. Without --refine the
+    transform is the single winning Hough hypothesis, whose rotation comes
+    from one feature pair's orientation frames: its error is printed, not
+    held (a rotation off by a few degrees moves the translation about the
+    origin by several voxels). Returns the second call's launches of M1-M3."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.cli import featmatch
+    from sift3d_torch.io import keyfile
+    from sift3d_torch.match.register import SimilarityTransform
+    from sift3d_torch.pipeline.extract import extract_features
+
+    grid = [(dz, dy, dx) for dz in range(-4, 5) for dy in range(-4, 5) for dx in range(-4, 5) if (dz, dy, dx) != (0, 0, 0)]
+    shifts = [grid[i] for i in np.random.default_rng(3).choice(len(grid), 31, replace=False)]
+    names, rows = [], []
+    t0 = time.perf_counter()
+    for i in range(32):
+        vol = base
+        if i:
+            gen = torch.Generator(device=dev).manual_seed(100 + i)
+            vol = torch.roll(base, shifts[i - 1], dims=(0, 1, 2)) + torch.randn(
+                base.shape, generator=gen, device=dev)
+        feats = extract_features(vol, cfg, device=dev)
+        names.append(f"img{i:02d}.key")
+        rows.append(keyfile.write_text(feats, os.path.join(tmp, names[-1]), eig_threshold=cfg.eig_threshold))
+    extract_s = time.perf_counter() - t0
+    wrappers = match_wrappers()
+    here = os.getcwd()
+    os.chdir(tmp)
+    def run(flags):
+        """One featmatch call: (wall ms, [stage ms, launches] by stage,
+        [translation error, |scale - 1|] of every pair)."""
+        for w in wrappers.values():
+            w.launches = 0
+        timer = launch_timer(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            # the CLI's default device is the card; another device is a rehearsal's
+            rc = featmatch.main([*flags, *names], timer=timer, device=None if dev.type == "cuda" else dev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if rc != 0:
+            raise AssertionError(f"featmatch {flags} failed: rc {rc}")
+        errs = []
+        for name, (dz, dy, dx) in zip(names[1:], shifts):
+            ts = SimilarityTransform.read_matrix(f"{name}.trans.txt")
+            errs.append([float(np.linalg.norm(ts.trans - np.array([-dx, -dy, -dz]))), abs(ts.scale - 1.0)])
+        stages = {k: [round(v, 3), timer.launches[k]] for k, v in timer.milliseconds().items()}
+        return wall, stages, np.asarray(errs, np.float64)
+
+    try:
+        hough_wall, _, hough_errs = run(["--all-to-all"])
+        walls = []
+        for _ in range(2):
+            wall, stages, errs = run(["--all-to-all", "--refine"])
+            walls.append(wall)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        votes = np.loadtxt("matching_votes.txt", skiprows=1, max_rows=32)
+    finally:
+        os.chdir(here)
+    print(
+        f"phase10 featmatch --all-to-all --refine on 32 volumes {FULL_DIMS} on {dev}: extraction + .key write "
+        f"{extract_s:.2f} s, .key rows {min(rows)}..{max(rows)} ({sum(rows)} in all); wall_ms {walls!r}; "
+        f"[stage ms, launches] of the second call {json.dumps(stages)}; shifts recovered: max translation "
+        f"error {float(errs[:, 0].max())!r} voxel, max |scale - 1| {float(errs[:, 1].max())!r}; votes {votes.shape}, "
+        f"diagonal {float(np.trace(votes))!r}, off-diagonal min {float((votes + np.eye(32) * 1e9).min())!r}; "
+        f"without --refine (the winning hypothesis alone): wall_ms {hough_wall!r}, max translation error "
+        f"{float(hough_errs[:, 0].max())!r} voxel (median {float(np.median(hough_errs[:, 0]))!r}), "
+        f"max |scale - 1| {float(hough_errs[:, 1].max())!r}"
+    )
+    if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(launches.values()) <= 0:
+        raise AssertionError(f"featmatch on the card missed a shift or a kernel: {errs.tolist()}, {launches}")
+    return launches
+
+
+FEATMATCH_FLAG_SETS = [[], ["--all-to-all"], ["-s0"], ["-s1"], ["-s2", "--all-to-all"], ["-r-"],
+                       ["-n", "3", "--all-to-all"], ["-f", "list.txt", "--all-to-all"],
+                       ["-g", "0.5", "--all-to-all"], ["--refine"]]
+
+
+def featmatch_card_vs_cpu(tmp: str) -> None:
+    """Phase 11: the featmatch CLI on the card against the CLI on the CPU,
+    on the fixtures of tests/test_torch_featmatch_cli.py (two Gaussian blobs
+    in 40^3, rolled by 2 along x and by -1 along y), for each flag set:
+    every output file byte-identical."""
+    import shutil
+
+    import numpy as np
+
+    from sift3d_torch.cli import featextract, featmatch
+    from sift3d_torch.io import nifti
+
+    def blob(c, s=3.0):
+        z, y, x = np.mgrid[0:40, 0:40, 0:40].astype(np.float32)
+        return np.exp(-(((x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2) / (2 * s * s))).astype(np.float32)
+
+    v1 = blob((20, 20, 20)) * 200 + blob((12, 26, 14), 2.5) * 150
+    names = ["a.key", "b.key", "c.key"]
+    keys = os.path.join(tmp, "keys")
+    os.makedirs(keys)
+    for name, vol in zip(names, (v1, np.roll(v1, 2, axis=2), np.roll(v1, -1, axis=1))):
+        nifti.write(os.path.join(keys, "v.nii"), vol)
+        with contextlib.redirect_stdout(io.StringIO()):
+            featextract.main([os.path.join(keys, "v.nii"), os.path.join(keys, name)])
+    wrappers = match_wrappers()
+    here = os.getcwd()
+    for flags in FEATMATCH_FLAG_SETS:
+        argv = flags + ([] if "-f" in flags else names)
+        dirs = {}
+        for who in ("card", "cpu"):
+            dirs[who] = tempfile.mkdtemp(prefix=f"{who}_", dir=tmp)
+            for name in names:
+                shutil.copy(os.path.join(keys, name), dirs[who])
+            with open(os.path.join(dirs[who], "list.txt"), "w") as f:
+                f.write("\n".join(names) + "\n")
+            for w in wrappers.values():
+                w.launches = 0
+            os.chdir(dirs[who])
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = featmatch.main(argv, device=None if who == "card" else "cpu")
+            finally:
+                os.chdir(here)
+            if who == "card":
+                launches = {k: w.launches for k, w in wrappers.items()}
+            if rc != 0:
+                raise AssertionError(f"featmatch {flags} failed on the {who}: rc {rc}")
+        files = sorted(f for f in os.listdir(dirs["cpu"]) if f not in names and f != "list.txt")
+        same = files == sorted(f for f in os.listdir(dirs["card"]) if f not in names and f != "list.txt")
+        differ = [f for f in files if not same_bytes(os.path.join(dirs["card"], f), os.path.join(dirs["cpu"], f))]
+        print(f"phase11 featmatch {' '.join(flags) or '(no flags)'}: {len(files)} output files, the same names "
+              f"{same}, byte-identical card = CPU {not differ} {differ}; card launches {json.dumps(launches)}")
+        want_knn = "--all-to-all" in flags
+        if not same or differ or launches["ratio_match"] <= 0 or launches["hough_scores"] <= 0 or (
+                want_knn and launches["knn_topk"] <= 0):
+            raise AssertionError(f"featmatch {flags}: the card disagrees with the CPU or ran no kernel")
+
+
 # profiler names of the kernels whose wrapper is named otherwise
 TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",),
                "rotated_goh": ("::goh_kernel<true>",), "goh": ("::goh_kernel<false>",)}
@@ -1299,10 +1607,11 @@ def main() -> int:
         f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name})"
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
-                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel"))
+                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel",
+                              "knn_topk", "ratio_match", "hough_scores"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
-          f"K1, K6, the fused K2 (identity_eig_kernel) and the fused K4 (goh_kernel<1> sampling, "
-          f"<0> on given patches): {json.dumps(redesigned)}")
+          f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
+          f"<0> on given patches), M1 (knn_topk_kernel<C, KM>), M2 and M3: {json.dumps(redesigned)}")
     spills = sorted(k for k, v in nvcc_report(("",)).items() if v[2] or v[3])
     if spills:
         print(f"phase1 warning: kernels that spill registers: {spills}")
@@ -1310,6 +1619,7 @@ def main() -> int:
     vol_np = synthetic_blob_texture(FULL_DIMS, seed=7)
     vol = torch.from_numpy(vol_np).to(dev)
     kernels = compare_kernels(vol, cfg)
+    kernels += compare_matching(extract_features(vol, cfg, device=dev), cfg, dev)
 
     wrappers = {
         "blur3d": gauss_cuda.blur3d,
@@ -1459,6 +1769,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(featmatch_full_width(vol, cfg, dev, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        featmatch_card_vs_cpu(tmp)
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -8,7 +8,9 @@ laid out like it:
 - :mod:`sift3d_torch.kernels`   blur, resampling, extrema, patch helpers,
                                 descriptors, and the CUDA kernel wrappers
 - :mod:`sift3d_torch.pipeline`  pyramid, feature stage, extraction
-- :mod:`sift3d_torch.cli`       the featextract command line
+- :mod:`sift3d_torch.match`     kNN, ratio test, Hough vote, similarity
+                                fit, group soft vote, transforms
+- :mod:`sift3d_torch.cli`       the featextract and featmatch command lines
 - ``csrc/``                     CUDA C++ sources (sm_90a), built on first use
 
 It never imports ``jax`` or ``sift3d``.

@@ -1,11 +1,11 @@
-"""Configuration of the port's extraction path.
+"""Configuration of the port: extraction and matching.
 
 The fields of ``sift3d.core.config.SiftConfig`` that the ported slice
 reads, with the same names and defaults, plus :func:`from_numpy_state`,
 which carries the JAX package's state into the port: the system has no
 learned weights, so its "parameters" are the config fields and the static
-host tables derived from them. The reference's other fields (matching,
-XLA capacities, TPU precision knobs) have no effect here and are accepted
+host tables derived from them. The reference's other fields (XLA
+capacities, TPU precision knobs) have no effect here and are accepted
 from another implementation only at their defaults.
 
 Reference provenance of each default (paths relative to the reference
@@ -21,6 +21,11 @@ source tree, 3dsift_cleanup-softVote_App_Weight_SoftMax):
 - eig_threshold=140                    featExtract/featExtract.cpp:297
 - brief_blur_sigma=0.95                src_common/MultiScale.cpp:1032
 - brief_method=2                       src_common/MultiScale.cpp:803
+- hough thresholds 1.0/2.0/0.7         feat_common/featMatchUtilities.cpp:918-920
+- ratio-test compat log(1.5)/0.5       feat_common/featMatchUtilities.cpp:12,64-65
+- max_matches=3000                     feat_common/featMatchUtilities.cpp:1103
+- knn neighbors=5                      featMatchMultiple/featMatchMultiple.cpp:430
+- softmax eta=1                        feat_common/featMatchUtilities.cpp:1721-1730
 """
 
 from __future__ import annotations
@@ -58,6 +63,16 @@ class SiftConfig:
     # ---- binary descriptors (-b/-br/-bn) ----
     brief_blur_sigma: float = 0.95
     brief_method: int = 2  # frozen pair table (kernels.descriptor.brief_pair_table)
+
+    # ---- matching (featmatch) ----
+    knn_neighbors: int = 5
+    max_matches: int = 3000
+    ratio_compat_log_scale: float = math.log(1.5)
+    ratio_compat_shift: float = 0.5
+    hough_thres_scale: float = 1.0
+    hough_thres_trans: float = 2.0
+    hough_thres_orien: float = 0.7
+    softvote_eta: float = 1.0
 
     @property
     def blurs_total(self) -> int:
@@ -158,14 +173,6 @@ UNREAD_DEFAULTS = {
     "max_candidates_per_level": 8192,
     "feature_chunk": 1024,
     "union_chunk": 4096,
-    "knn_neighbors": 5,
-    "max_matches": 3000,
-    "ratio_compat_log_scale": math.log(1.5),
-    "ratio_compat_shift": 0.5,
-    "hough_thres_scale": 1.0,
-    "hough_thres_trans": 2.0,
-    "hough_thres_orien": 0.7,
-    "softvote_eta": 1.0,
     "dtype": "float32",
 }
 

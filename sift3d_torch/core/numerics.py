@@ -27,6 +27,26 @@ def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 fma a * b + c, on every device: a CUDA
+    kernel's fmaf, and the multiply-add XLA's CPU code contracts.
+
+    The product is exact in f64. The f64 sum is made round-to-odd (an
+    inexact sum with an even last bit moves to its neighbour toward the
+    exact value, which TwoSum gives exactly), and rounding a round-to-odd
+    f64 value to f32 rounds the exact value once (53 >= 24 + 2 bits), where
+    :func:`fma`'s plain f64 sum is off at f32 midpoints."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    fix = (err != 0) & ((bits & 1) == 0)
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root.
 
@@ -72,3 +92,35 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
         h = x.shape[-1] // 2
         x = x[..., :h] + x[..., h:]
     return x[..., 0]
+
+
+def numpy_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in numpy's order (the pairwise sum of
+    ``np.add.reduce`` along a contiguous axis), the same on every device.
+
+    Fewer than 8 elements: left to right. Up to 128: 8 running sums over
+    blocks of 8, combined as ((r0 + r1) + (r2 + r3)) + ((r4 + r5) + (r6 +
+    r7)), then the rest left to right. Longer: the two halves (the first a
+    multiple of 8 long) summed alike, then added. The group vote's sums
+    over a query's neighbours and over the labels use it, so they equal
+    the JAX package's numpy sums bit for bit."""
+    n = x.shape[-1]
+    if n == 0:
+        return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    if n < 8:
+        res = x[..., 0]
+        for i in range(1, n):
+            res = res + x[..., i]
+        return res
+    if n <= 128:
+        m = n - n % 8
+        r = x[..., :8]
+        for i in range(8, m, 8):
+            r = r + x[..., i : i + 8]
+        res = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+        for i in range(m, n):
+            res = res + x[..., i]
+        return res
+    half = n // 2
+    half -= half % 8
+    return numpy_sum(x[..., :half]) + numpy_sum(x[..., half:])

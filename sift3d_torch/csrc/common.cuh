@@ -199,6 +199,32 @@ __device__ __forceinline__ bool in_sphere(int i) {
 __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
 
+// ---- the matching kernels' distances (M1, M2): knn_cuda.dist_sqr_plain ----
+
+// Squared norm of a C-vector, x(c) its element c, in the order XLA's CPU
+// code sums the JAX kNN's (q * q).sum(-1): the squares rounded, the columns
+// cut into windows of 32 (C > 32: padded evenly on both sides), each window
+// summed from 0 in column order, and the window sums added from 0.
+template <int C, class X>
+__device__ __forceinline__ float window_sq_norm(X x) {
+  constexpr int kNW = C <= 32 ? 1 : (C + 31) / 32;
+  constexpr int kLeft = C <= 32 ? 0 : (kNW * 32 - C) / 2;
+  float tot = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kNW; ++w) {
+    const int lo = max(0, 32 * w - kLeft), hi = C <= 32 ? C : min(C, 32 * w + 32 - kLeft);
+    float acc = 0.0f;
+#pragma unroll
+    for (int c = lo; c < hi; ++c) {
+      const float v = x(c);
+      const float sq = v * v;
+      acc = acc + sq;
+    }
+    tot = tot + acc;
+  }
+  return tot;
+}
+
 // Select the device, then launch on `stream`; returns cudaGetLastError().
 #define SIFT3D_LAUNCH(device, kernel, grid, block, stream, ...)          \
   do {                                                                   \

@@ -69,6 +69,14 @@ SIGNATURES = {
     "sift3d_rotated_goh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # patches [R,11,11,11], out [R,64] u8, R
     "sift3d_goh": (_P, _P, _I),
+    # q [Q,C], db [N,C] f32, out dist [Q,k] f32, idx [Q,k] i64, Q, N, C, k
+    "sift3d_knn_topk": (_P, _P, _P, _P, _I, _I, _I, _I),
+    # q [Q,64], db [D,64], xyz [D,3], scale [D] f32, out idx [Q] i64, ratio [Q] f32, Q, D,
+    # log_thr, shift
+    "sift3d_ratio_match": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F),
+    # rots [M,9], hscale [M], p0 [M,3], p1 [M,3], s0 [M], s1 [M], o0 [M,9], o1 [M,9] f32,
+    # scores [M] i32 (zeroed), M, thres_scale, thres_trans, thres_orien
+    "sift3d_hough_scores": (_P,) * 9 + (_I, _F, _F, _F),
 }
 
 

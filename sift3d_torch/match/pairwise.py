@@ -1,0 +1,260 @@
+"""Pairwise matching: NN + ratio test with geometric-compatibility shuffle.
+
+Port of msComputeNearestNeighborDistanceRatioInfo
+(feat_common/featMatchUtilities.cpp:336-421) and the match-list assembly of
+MatchKeys (:1027-1136), the counterpart of ``sift3d.match.pairwise``. The
+descriptor distance is L2 over the 64 rank-ordered values (the reference
+snapshot has it commented out, SURVEY.md section 2.3 quirk 2; the JAX
+package implements the intent).
+
+The reference walks the database sequentially per query, keeping a (1st,
+2nd)-nearest state with geometric-compatibility shuffling. The kernel M2
+(:func:`ratio_rows`, ``csrc/ratio_match.cu``) runs that state machine, one
+query a thread, computing each distance row on the fly. Its plain version
+(:func:`ratio_rows_plain`) is the JAX package's closed form of the same
+machine over the [Q, D] distance matrix:
+
+  min1 = global minimum (earliest index on ties);
+  min2 = min over the "displacement events" of the scan —
+    E0: the non-minimum of the first database pair (set unconditionally);
+    E1: at each strict prefix-minimum transition j, the OLD minimum's
+        distance, iff j is incompatible with that old minimum;
+    E2: every non-record j >= 2 contributes its own distance iff j is
+        incompatible with the prefix minimum current at j.
+
+Both take distances in M1's order (``knn_cuda.dist_sqr_plain``) and the
+compatibility test of :func:`compatible_features`, so they agree to the
+bit; the CPU tests hold the plain version to the JAX ``ratio_match`` and
+its sequential oracle.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sift3d_torch.core import numerics
+from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
+from sift3d_torch.core.device import resolve_device
+from sift3d_torch.core.featureset import FeatureSet
+from sift3d_torch.kernels import cuda_lib
+from sift3d_torch.kernels.knn_cuda import dist_sqr_plain, sq_norms
+
+PLAIN_CHUNK = 1 << 22  # distances per chunk of the plain version's compatibility gather
+
+
+def compatible_features(xyz_a, scale_a, xyz_b, scale_b, log_thr: float, shift: float) -> torch.Tensor:
+    """compatible_features (featMatchUtilities.cpp:60-158, sphere case):
+    |log(s_a / s_b)| < log_thr and |xyz_a - xyz_b| < shift * s_a.
+    Asymmetric: the shift threshold is scaled by feature A's scale. The
+    distance is the correctly rounded root of ((dx dx + dy dy) + dz dz), the
+    log is computed in f64 and rounded to f32, as in the kernel."""
+    e = xyz_a - xyz_b
+    dist = numerics.sqrt((e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1]) + e[..., 2] * e[..., 2])
+    sdiff = torch.log((scale_a / scale_b).double()).float().abs()
+    return (sdiff < log_thr) & (dist < shift * scale_a)
+
+
+def closed_form(d, xyz, scale, log_thr: float, shift: float):
+    """The ratio test on distance rows d [q, D] (D >= 2) of a database at
+    xyz [D, 3], scale [D]: (nearest index [q] int64, d1 / d2 [q] f32)."""
+    cols = torch.arange(d.shape[1], device=d.device)
+    # prefix-minimum records: is_rec[j] iff d[j] < min(d[:j]) (strict, so
+    # the init-pair tie keeping index 0 falls out naturally)
+    run_min = torch.cummin(d, dim=1).values
+    is_rec = torch.ones_like(d, dtype=torch.bool)
+    is_rec[:, 1:] = d[:, 1:] < run_min[:, :-1]
+    # rec_pos[j] = index of the prefix minimum over d[:j+1]
+    rec_pos = torch.cummax(torch.where(is_rec, cols, 0), dim=1).values
+    m1_idx = rec_pos[:, -1]  # the earliest global minimum
+    d1 = d.gather(1, m1_idx[:, None])[:, 0]
+    # E0: the non-minimum of the first pair
+    d2 = torch.where(d[:, 1] < d[:, 0], d[:, 0], d[:, 1])
+    if d.shape[1] > 2:
+        # events at j >= 2: partner = the prefix minimum before j; value =
+        # the displaced old minimum (record j) or j's own distance
+        partner = rec_pos[:, 1:-1]
+        val = torch.where(is_rec[:, 2:], d.gather(1, partner), d[:, 2:])
+        cmp = compatible_features(xyz[None, 2:], scale[None, 2:], xyz[partner], scale[partner], log_thr, shift)
+        ev = torch.where(cmp, torch.full_like(val, torch.inf), val)
+        d2 = torch.minimum(d2, ev.amin(dim=1))
+    ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)), torch.zeros_like(d2))
+    return m1_idx, ratio
+
+
+def ratio_rows_plain(q, db, xyz, scale, log_thr: float, shift: float):
+    """q [Q, 64], db [D, 64], xyz [D, 3], scale [D] f32, D >= 2 ->
+    (nearest index [Q] int64, d1 / d2 [Q] f32): the closed form over M1's
+    distance rows, in chunks of queries."""
+    dn = sq_norms(db)
+    step = max(1, PLAIN_CHUNK // db.shape[0])
+    out = [closed_form(dist_sqr_plain(q[q0 : q0 + step], db, dn), xyz, scale, log_thr, shift)
+           for q0 in range(0, q.shape[0], step)]
+    if not out:
+        return torch.zeros(0, dtype=torch.int64, device=q.device), torch.zeros(0, device=q.device)
+    return torch.cat([i for i, _ in out]), torch.cat([r for _, r in out])
+
+
+def ratio_rows(q, db, xyz, scale, log_thr: float, shift: float):
+    """M2 (see ratio_rows_plain): the plain version for CPU tensors, the
+    kernel for CUDA tensors."""
+    if db.shape[0] < 2:
+        raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
+    if cuda_lib.route(q) == "plain":
+        return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
+    nq, nd = q.shape[0], db.shape[0]
+    for name, t, shape in (("q", q, (nq, 64)), ("db", db, (nd, 64)), ("xyz", xyz, (nd, 3)), ("scale", scale, (nd,))):
+        cuda_lib.require_cuda(t, name, torch.float32, len(shape))
+        if tuple(t.shape) != shape or t.device != q.device:
+            raise ValueError(f"{name} must be {shape} on {q.device}, got {tuple(t.shape)} on {t.device}")
+    idx = torch.empty(nq, dtype=torch.int64, device=q.device)
+    ratio = torch.empty(nq, dtype=torch.float32, device=q.device)
+    if nq == 0:
+        return idx, ratio
+    cuda_lib.launch("sift3d_ratio_match", q, db, xyz, scale, idx, ratio, nq, nd, log_thr, shift, device=q.device)
+    ratio_rows.launches += 1
+    return idx, ratio
+
+
+ratio_rows.launches = 0
+
+
+@dataclasses.dataclass
+class RatioMatches:
+    query_idx: np.ndarray  # [M] indices into the query (model) set
+    db_idx: np.ndarray  # [M] indices into the database (input) set
+    ratio: np.ndarray  # [M] d1/d2
+
+
+def _empty_matches() -> RatioMatches:
+    return RatioMatches(np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0, np.float32))
+
+
+def ratio_match_stacked(query_sets, db: FeatureSet, cfg: SiftConfig = DEFAULT_CONFIG, device=None):
+    """ratio_match of every query set against one database, as ONE M2
+    launch over the concatenated queries, split back by each set's offset.
+    Returns a RatioMatches per set (empty ones when the database has fewer
+    than 2 rows)."""
+    dev = resolve_device(device)
+    if len(db) < 2:
+        return [_empty_matches() for _ in query_sets]
+    sizes = [len(s) for s in query_sets]
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    q = np.concatenate([s.desc for s in query_sets]) if query_sets else np.zeros((0, 64), np.float32)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+
+    idx, ratio = ratio_rows(
+        put(q), put(db.desc), put(db.xyz), put(db.scale),
+        float(np.float32(cfg.ratio_compat_log_scale)), float(cfg.ratio_compat_shift),
+    )
+    idx, ratio = idx.cpu().numpy(), ratio.cpu().numpy()
+    return [
+        RatioMatches(np.arange(n, dtype=np.int64), idx[o : o + n], ratio[o : o + n]) if n else _empty_matches()
+        for n, o in zip(sizes, offsets)
+    ]
+
+
+def ratio_match(queries: FeatureSet, db: FeatureSet, cfg: SiftConfig = DEFAULT_CONFIG, device=None) -> RatioMatches:
+    """For each query feature, the nearest db feature and the squared-
+    distance ratio d1 / d2, with the reference's geometric-compatibility
+    shuffle reproduced exactly. device: None means the card (raises without
+    one); "cpu" runs M2's plain version."""
+    return ratio_match_stacked([queries], db, cfg, device)[0]
+
+
+@dataclasses.dataclass
+class MatchResult:
+    """MatchKeys outputs: inlier correspondences + similarity transform
+    mapping query-set coordinates to db-set coordinates."""
+
+    model_idx: np.ndarray  # indices into the query/model set (image 2)
+    input_idx: np.ndarray  # indices into the db/input set (image 1)
+    inlier: np.ndarray  # bool per match
+    num_inliers: int
+    transform: "object"  # SimilarityTransform (2 -> 1)
+
+
+def match_keys(
+    feats1: FeatureSet,
+    feats2: FeatureSet,
+    cfg: SiftConfig = DEFAULT_CONFIG,
+    refine: bool = False,
+    matches: Optional[RatioMatches] = None,
+    device=None,
+) -> MatchResult:
+    """MatchKeys (featMatchUtilities.cpp:1027-1260): ratio-sorted matches
+    capped at max_matches, then Hough similarity voting. feats2 is the
+    'model' (queries), feats1 the 'input' (database), and the returned
+    transform maps feats2 coordinates into feats1 space. `matches`
+    optionally supplies ratio_match(feats2, feats1) (callers matching many
+    query sets against one database run them as one launch). device: None
+    means the card (raises without one); "cpu" runs the plain versions."""
+    from sift3d_torch.match.hough import hough_similarity
+    from sift3d_torch.match.register import SimilarityTransform
+
+    dev = resolve_device(device)
+    rm = ratio_match(feats2, feats1, cfg, dev) if matches is None else matches
+    order = np.argsort(rm.ratio, kind="stable")
+    order = order[: cfg.max_matches]
+    model_idx = rm.query_idx[order]
+    input_idx = rm.db_idx[order]
+
+    if model_idx.shape[0] <= 3:
+        return MatchResult(
+            model_idx=model_idx,
+            input_idx=input_idx,
+            inlier=np.zeros(model_idx.shape[0], bool),
+            num_inliers=int(model_idx.shape[0]),
+            transform=SimilarityTransform(),
+        )
+
+    # model center parameterizes the output transform
+    # (getMinMaxDim midpoint, featMatchUtilities.cpp:1150-1160)
+    mn = feats2.xyz.min(axis=0)
+    mx = feats2.xyz.max(axis=0)
+    center0 = 0.5 * (mn + mx)
+
+    best = hough_similarity(
+        pts0=feats2.xyz[model_idx],
+        pts1=feats1.xyz[input_idx],
+        s0=feats2.scale[model_idx],
+        s1=feats1.scale[input_idx],
+        o0=feats2.ori[model_idx],
+        o1=feats1.ori[input_idx],
+        cfg=cfg,
+        device=dev,
+    )
+    rot = best["rot"]
+    scale = best["scale"]
+    i = best["hypothesis"]
+    # translation: transform the model center (similarity_transform_3point
+    # about the winning correspondence pair)
+    c0 = feats2.xyz[model_idx[i]]
+    c1 = feats1.xyz[input_idx[i]]
+    center1 = (rot @ (center0 - c0)) * scale + c1
+    # convert rotation-about-point to rotation-about-origin translation
+    trans = center1 - scale * (rot @ center0)
+    ts = SimilarityTransform(scale=float(scale), rot=rot, trans=trans)
+
+    if refine and best["inliers"].sum() >= 4:
+        # weighted least-squares (Umeyama) over the Hough inliers — a
+        # refinement step the reference lacks (it keeps the single winning
+        # hypothesis); markedly tightens the transform on noisy data
+        from sift3d_torch.match.solve import solve_similarity
+
+        inl = best["inliers"]
+        s, r, t = solve_similarity(feats2.xyz[model_idx[inl]], feats1.xyz[input_idx[inl]], device=dev)
+        ts = SimilarityTransform(scale=s, rot=r, trans=t)
+
+    return MatchResult(
+        model_idx=model_idx,
+        input_idx=input_idx,
+        inlier=best["inliers"],
+        num_inliers=int(best["inliers"].sum()),
+        transform=ts,
+    )

@@ -3,7 +3,8 @@
 - No module under sift3d_torch/ imports jax, jaxlib or sift3d (the card's
   machine has no JAX; importing sift3d pulls it in).
 - A CPU tensor takes every kernel wrapper's plain path, and never builds.
-- Every ported kernel has its CUDA source.
+- Every ported kernel has its CUDA source, the matching kernels (M1 kNN,
+  M2 ratio test, M3 Hough scores) too.
 - On a CUDA card (marker `cuda`, skipped without one), every kernel equals
   its plain version on the same tensors; the blur (K7) equals its plain
   version run on the CPU (cuBLAS on the card sums in another order). This file imports no JAX, so it
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from sift3d_torch.core.config import SiftConfig
-from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda
+from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, knn_cuda, patch_cuda
+from sift3d_torch.match import hough, pairwise
 from sift3d_torch.pipeline import features
 
 torch.set_num_threads(1)
@@ -65,6 +67,14 @@ def test_cuda_sources_exist(source):
     assert "Replaces the Pallas kernel" in text
 
 
+@pytest.mark.parametrize("source", ["knn_topk.cu", "ratio_match.cu", "hough_scores.cu"])
+def test_matching_sources_exist(source):
+    text = (PACKAGE / "csrc" / source).read_text()
+    assert 'extern "C" int sift3d_' in text
+    # the JAX package computes matching in XLA and numpy, not in Pallas
+    assert "Not a Pallas kernel in the JAX package" in text and "Replaces the" in text
+
+
 @pytest.mark.parametrize("entry", sorted(cuda_lib.SIGNATURES))
 def test_every_c_entry_has_its_source(entry):
     text = "".join(src.read_text() for src in cuda_lib.sources())
@@ -99,9 +109,45 @@ def _candidates(gs):
     return dogs.to(gs.device), lvl.to(gs.device), zyx.to(gs.device)
 
 
+def _match_inputs(device):
+    """Inputs of M1-M3 on `device`: rank rows with repeats (tied
+    distances), 67-column rows with float geometry, a database with
+    positions and scales, and 40 matches of a noisy similarity."""
+    rng = np.random.default_rng(7)
+    ranks = rng.permuted(np.tile(np.arange(64, dtype=np.float32), (60, 1)), axis=1)
+    db = np.concatenate([ranks, ranks[:20]])
+    q = np.concatenate([ranks[rng.integers(0, 60, 10)], rng.integers(0, 64, (15, 64)).astype(np.float32)])
+    geo = rng.uniform(0, 20, (80, 3)).astype(np.float32)
+    xyz = rng.uniform(0, 30, (80, 3)).astype(np.float32)
+    scale = rng.uniform(2, 6, 80).astype(np.float32)
+    o0, _ = np.linalg.qr(rng.standard_normal((40, 3, 3)))
+    o1 = (o0 + rng.normal(0, 0.2, o0.shape)).astype(np.float32)
+    p0 = rng.uniform(0, 40, (40, 3)).astype(np.float32)
+    p1 = (p0 + rng.normal(0, 2, p0.shape)).astype(np.float32)
+    s0 = rng.uniform(2, 6, 40).astype(np.float32)
+    s1 = (s0 * np.exp(rng.normal(0, 0.5, 40))).astype(np.float32)
+    m = [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (s0, s1, o0, o1)]
+    rots, hs = hough.hypotheses(*m)
+
+    def put(*arrays):
+        return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(device) for a in arrays]
+
+    return dict(
+        knn=(*put(q, db), 5),
+        knn67=(*put(np.concatenate([q, geo[:25]], 1), np.concatenate([db, geo], 1)), 9),
+        ratio=(*put(q, db, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
+        hough=(*put(rots, hs, p0, p1, s0, s1, o0, o1), (1.0, 2.0, float(np.float32(0.7)))),
+    )
+
+
 def _calls(gs, lvl, centers, scales, oris, hist, band):
     cfg = SiftConfig()
+    m = _match_inputs(gs.device)
     return {
+        "knn_topk": (knn_cuda.knn_topk, knn_cuda.knn_topk_plain, m["knn"]),
+        "knn_topk_geometry": (knn_cuda.knn_topk, knn_cuda.knn_topk_plain, m["knn67"]),
+        "ratio_rows": (pairwise.ratio_rows, pairwise.ratio_rows_plain, m["ratio"]),
+        "hough_scores": (hough.hough_scores, hough.hough_scores_plain, m["hough"]),
         "gather_eig": (
             features.gather_eig, features.gather_eig_plain,
             (gs, *_candidates(gs), tuple(cfg.level_sigmas()), cfg),
