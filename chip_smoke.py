@@ -38,8 +38,8 @@ Phases, each printing one line:
      a batch of three 91x109x91 volumes and every radius 1..8 (against the
      plain blur on the CPU), on the deepest T1 octave (5x6x5, against the
      fma chain in numpy), K3, K8 and K9 on rows with V in {1, 127, 128,
-     129, 485}, a zero-weight row and two tied peaks, K1 and K6 (a batch of
-     three) at every launch on extents of 3 and 4 along z, y and x, a
+     129, 485}, a zero-weight row and two tied peaks, K1 and K6 (each a
+     batch of three) at every launch on extents of 3 and 4 along z, y and x, a
      37x75x61 volume and the 5x6x5 octave, with plateaus, ties, +-0, +-inf
      and NaN planted on the seams of tiles, warps and z runs, the fused K2
      on rows whose patch is constant (norm 0, a zero tensor), a ramp along
@@ -47,7 +47,13 @@ Phases, each printing one line:
      a ramp with a faint second slope (a nearly degenerate pair), from the
      whole volume and from a Z slab (gz0 > 0), and the fused K4 on flat
      patches (all 64 bins tied), rows at scales above 8.80, rows reaching
-     outside the volume in x and slab rows;
+     outside the volume in x and slab rows; and the batched calls of
+     extract_features_many: K1 on the [4, 6, 182, 218, 182] octave-0 stacks
+     of phase 12's first four volumes, the fused K2 on their candidate
+     union (volume index vi) and the fused K4 on its reoriented rows over
+     the flattened [24, 182, 218, 182] stack, then the three on a batch
+     whose first volume (zeros) has no candidate, each exact against its
+     plain version and against per-volume launches;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: per-stage milliseconds, feature counts, and every
      kernel's launch count in that run (each must be > 0); then K8's and
@@ -100,7 +106,15 @@ Phases, each printing one line:
      voxel of its shift and its scale within 5% of 1;
  11. the featmatch CLI on the card against the CLI on the CPU for every
      flag set of tests/test_torch_featmatch_cli.py and --refine, on its
-     40^3 fixtures: every output file byte-identical.
+     40^3 fixtures: every output file byte-identical;
+ 12. batched extraction (extract_features_many) on phase 10's 32 volumes,
+     the first B for B in 1, 4, 8, 16 and 32: every volume's features equal
+     extract_features on it alone, bit for bit; for each B the median wall
+     of 5 calls, volumes/s, device busy and launch calls a volume and the
+     idle share from one torch.profiler trace, the device peak, and the
+     launches a batch of K7, K1 (once per octave), the fused K2, K3, the
+     fused K4 and goh; then a mixed batch (a T1-grid volume, zeros, a -2-
+     grid volume) on the card against the same batch on the CPU, exact.
 Phase 2 also holds the matching kernels against their plain versions,
 exactly, with the same times, bounds and yardsticks: M1 (kNN, k = 5) over
 48,000 rows all to all (the extraction's GoH rows tiled, rows from a
@@ -549,8 +563,8 @@ def extrema_edges(dev) -> None:
     """Phase 2 edge inputs of K1 and K6 (csrc/dogs_extrema.cu), each exact
     against the plain version on the card at every launch that
     extrema_launch_geometry can choose: extents of 3 and 4 along z, y and
-    x, a 37x75x61 volume, the deepest T1 octave (5x6x5) and, for K6, a batch
-    of three; every input with plateaus, ties, +-0, +-inf and NaN planted on
+    x, a 37x75x61 volume, the deepest T1 octave (5x6x5), each a batch of
+    three; every input with plateaus, ties, +-0, +-inf and NaN planted on
     the seams of the tiles and z runs (utils.synthetic.extrema_edge_stack)."""
     import numpy as np
     import torch
@@ -561,7 +575,8 @@ def extrema_edges(dev) -> None:
     shapes = [(3, 40, 70), (40, 3, 70), (40, 70, 3), (4, 40, 70), (40, 4, 70), (40, 70, 4),
               (37, 75, 61), (5, 6, 5)]
     for shape in shapes:
-        gs = torch.from_numpy(extrema_edge_stack(shape, 6, sum(shape))).to(dev)
+        gs = np.stack([extrema_edge_stack(shape, 6, k * 7 + sum(shape)) for k in range(3)])
+        gs = torch.from_numpy(gs).to(dev)
         dogs, mask = extrema_cuda.dogs_extrema_plain(gs)
         batch = np.stack([extrema_edge_stack(shape, 5, k + sum(shape)) for k in range(3)])
         batch = torch.from_numpy(batch).to(dev)
@@ -572,11 +587,10 @@ def extrema_edges(dev) -> None:
             got_dogs, got_mask = extrema_cuda._launch_dogs(gs, g)
             errs[f"K1 {ty}/{zr}"] = max(max_abs(got_dogs, dogs), max_abs(got_mask.float(), mask.float()))
             errs[f"K6 {ty}/{zr}"] = max_abs(extrema_cuda._launch_mask(batch, g).float(), mask6.float())
-        chosen = {k: extrema_cuda.extrema_launch_geometry(b, k) for k, b in
-                  (("dogs_extrema", (1, *shape)), ("extrema_mask", (3, *shape)))}
+        chosen = {k: extrema_cuda.extrema_launch_geometry((3, *shape), k) for k in ("dogs_extrema", "extrema_mask")}
         special = {"nan": int(torch.isnan(gs).sum()), "inf": int(torch.isinf(gs).sum()),
                    "-0": int(((gs == 0) & torch.signbit(gs)).sum())}
-        print(f"phase2 extrema edge {shape} (K6: a batch of 3), planted {json.dumps(special)}, "
+        print(f"phase2 extrema edge {shape} (batches of 3), planted {json.dumps(special)}, "
               f"{int((mask != 0).sum())} K1 extrema; chosen {json.dumps(chosen)}; max_abs_err at every "
               f"launch (exact): {max(errs.values())!r} over {len(errs)}")
         if max(errs.values()) != 0.0:
@@ -691,13 +705,12 @@ def extrema_geometry_sweep(x, label, kernel) -> None:
     from sift3d_torch.kernels import extrema_cuda
     from sift3d_torch.kernels.gauss_cuda import sm_count
 
+    batch = x if x.ndim == 5 else x[None]
+    shape = (batch.shape[0], *batch.shape[2:])
     if kernel == "dogs_extrema":
-        shape = (1, *x.shape[1:])
-        want = extrema_cuda.dogs_extrema_plain(x)
-        run = functools.partial(extrema_cuda._launch_dogs, x)
+        want = extrema_cuda.dogs_extrema_plain(batch)
+        run = functools.partial(extrema_cuda._launch_dogs, batch)
     else:
-        batch = x if x.ndim == 5 else x[None]
-        shape = (batch.shape[0], *batch.shape[2:])
         want = (extrema_cuda.extrema_mask_plain(batch),)
         run = functools.partial(extrema_cuda._launch_mask, batch)
     chosen = extrema_cuda.extrema_launch_geometry(shape, kernel, sm_count(x.device))
@@ -779,6 +792,17 @@ def record_kernel(results, name, source, replaces, kernel, plain, tol, note, n_b
     results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=library_ms))
+
+
+def table_rows(results) -> list:
+    """The kernel table's rows of a phase's results: each kernel's first
+    row (its times at the first shape it was checked at) with its largest
+    error over all."""
+    table = {}
+    for r in results:
+        first = table.setdefault(r["name"], r)
+        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
+    return list(table.values())
 
 
 def compare_kernels(vol, cfg):
@@ -976,11 +1000,7 @@ def compare_kernels(vol, cfg):
         )
         del gstack, dogs, mask, pn
 
-    table = {}
-    for r in results:
-        first = table.setdefault(r["name"], r)
-        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
-    return list(table.values())
+    return table_rows(results)
 
 
 def rotation(seed: int):
@@ -1270,6 +1290,111 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     return first
 
 
+def shifted_volumes(base, n: int = 32):
+    """Phase 10's and 12's volumes on the T1 grid, on base's device: image 0
+    the blob texture, images 1..n-1 copies rolled by distinct integer shifts
+    of at most 4 voxels plus unit Gaussian noise (seeded). Returns (volumes,
+    the shifts of images 1..n-1)."""
+    import numpy as np
+    import torch
+
+    grid = [(dz, dy, dx) for dz in range(-4, 5) for dy in range(-4, 5) for dx in range(-4, 5) if (dz, dy, dx) != (0, 0, 0)]
+    shifts = [grid[i] for i in np.random.default_rng(3).choice(len(grid), 31, replace=False)][: n - 1]
+    vols = [base]
+    for i, shift in enumerate(shifts, 1):
+        gen = torch.Generator(device=base.device).manual_seed(100 + i)
+        vols.append(torch.roll(base, shift, dims=(0, 1, 2)) + torch.randn(base.shape, generator=gen, device=base.device))
+    return vols, shifts
+
+
+def compare_batched(base, cfg) -> list:
+    """Phase 2's batched rows: K1 on the octave-0 stacks of four T1-grid
+    volumes (phase 12's first four) as one [4, 6, 182, 218, 182] batch, the
+    fused K2 on their candidate union (volume index vi, the last volume's
+    rows included) and the fused K4 on the union's reoriented rows over the
+    flattened [24, 182, 218, 182] stack; then the same three on a batch
+    whose first volume (zeros) has no candidate and whose second is T1.
+    Each exact against its plain version on the same tensors and against
+    per-volume launches of the same kernel. Returns the kernel table's rows
+    dogs_extrema_batch, gather_eig_union and rotated_goh_union."""
+    import torch
+
+    from sift3d_torch.kernels import extrema_cuda, patch_cuda
+    from sift3d_torch.pipeline import features, pyramid
+
+    results = []
+    record = functools.partial(record_kernel, results)
+    vols, _ = shifted_volumes(base, 4)
+    sig = tuple(cfg.level_sigmas())
+    s = cfg.max_primary_orientations * cfg.max_secondary_orientations
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for label, batch in (("four T1-grid volumes", torch.stack(vols)),
+                         ("zeros, then T1", torch.stack([torch.zeros_like(base), vols[3]]))):
+        nb = batch.shape[0]
+        gstack, _, _, _ = pyramid.octave_core(pyramid.initial_blur_core(batch, cfg), cfg)
+        vox = gstack[:, 0].numel()
+        record(
+            "dogs_extrema_batch", "sift3d_torch/csrc/dogs_extrema.cu", "sift3d/kernels/extrema_pallas.py:284",
+            lambda: extrema_cuda.dogs_extrema(gstack), lambda: extrema_cuda.dogs_extrema_plain(gstack),
+            0.0, f"{label}: octave-0 gstack {tuple(gstack.shape)} (exact)", 47 * vox, 5 * vox,
+        )
+        dogs, mask = extrema_cuda.dogs_extrema(gstack)
+        per_volume = [same((dogs[b], mask[b]), extrema_cuda.dogs_extrema(gstack[b].contiguous())) for b in range(nb)]
+        vi, lvl, zyx, _, _ = features.candidate_union(mask)
+        zyx = zyx.contiguous()
+        counts = torch.bincount(vi, minlength=nb).tolist()
+        out = features.gather_eig(gstack, dogs, lvl, zyx, sig, cfg, vi=vi)
+        xyz, scale_, in_bounds, pn, _, _, keep = out
+        n, flat = lvl.shape[0], gstack.flatten(0, 1)
+        glvl = vi * gstack.shape[1] + lvl
+        touched = touched_voxels(flat.shape, glvl, *patch_points(glvl, xyz, scale_))
+        record(
+            "gather_eig_union", "sift3d_torch/csrc/identity_eig.cu", "sift3d/kernels/patch.py:375",
+            lambda: features.gather_eig(gstack, dogs, lvl, zyx, sig, cfg, vi=vi),
+            lambda: features.gather_eig_plain(gstack, dogs, lvl, zyx, sig, cfg, vi=vi),
+            0.0, f"{label}: octave-0 candidate union, {n} rows, per volume {counts} (exact)",
+            (GATHER_EIG_ROW_BYTES + 8) * n + 4 * touched_dogs(dogs.flatten(0, 1).shape, vi * dogs.shape[1] + lvl, zyx)
+            + 4 * touched, GATHER_EIG_ROW_FLOPS * n,
+        )
+        for b in range(nb):
+            sel = vi == b
+            if not sel.any():
+                continue
+            single = features.gather_eig(gstack[b].contiguous(), dogs[b].contiguous(), lvl[sel], zyx[sel], sig, cfg)
+            per_volume.append(same([t[sel] for t in out], single))
+        kidx = torch.nonzero(in_bounds & keep)[:, 0]
+        o = features.canonical_stage(pn[kidx], cfg)
+        row, slot = features.reoriented_slots(o["ori_valid"], cfg)
+        rvi = vi[kidx][row]
+        rrows = [glvl[kidx][row].to(torch.int32), xyz[kidx][row], scale_[kidx][row],
+                 o["ori"].reshape(-1, s, 3, 3)[row, slot].contiguous()]
+        nr = row.shape[0]
+        touched = touched_voxels(flat.shape, rrows[0], *patch_points(*rrows))
+        record(
+            "rotated_goh_union", "sift3d_torch/csrc/rotated_goh.cu", "sift3d/kernels/patch.py:889",
+            lambda: patch_cuda.rotated_goh(flat, *rrows), lambda: patch_cuda.rotated_goh_plain(flat, *rrows),
+            0.0, f"{label}: {nr} reoriented rows of the union on the flattened stack {tuple(flat.shape)}, "
+            f"per volume {torch.bincount(rvi, minlength=nb).tolist()} (exact)",
+            56 * nr + 4 * touched + 64 * nr, (42 * 1331 + GOH_ROW_FLOPS) * nr,
+        )
+        got = patch_cuda.rotated_goh(flat, *rrows)
+        for b in range(nb):
+            sel = rvi == b
+            if not sel.any():
+                continue
+            local = [(rrows[0][sel] - b * gstack.shape[1]).contiguous(), *(t[sel] for t in rrows[1:])]
+            per_volume.append(torch.equal(got[sel], patch_cuda.rotated_goh(gstack[b].contiguous(), *local)))
+        print(f"phase2 batched {label}: K1, the fused K2 and the fused K4 equal to per-volume launches: "
+              f"{per_volume}")
+        if not all(per_volume) or (nb == 4 and min(counts) == 0) or (nb == 2 and counts[0] != 0):
+            raise AssertionError(f"the batched kernels differ from per-volume launches on {label}: {per_volume}")
+        del gstack, dogs, mask, flat, pn, out
+    return table_rows(results)
+
+
 MATCH_ROWS = 48_000  # 32 images x 1500 features: MATCHBENCH_r05.json's largest cell (its sizes only)
 HOUGH_STAGE_OPS = (34, 60, 4)  # ops a pair: the distance test, the orientation test, the scale test
 
@@ -1373,11 +1498,7 @@ def compare_matching(feats, cfg, dev):
             f"past the orientation test {reach[1]}) (exact)",
             m * (26 + 10) * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th),
         )
-    table = {}
-    for r in results:
-        first = table.setdefault(r["name"], r)
-        first["max_abs_err"] = max(first["max_abs_err"], r["max_abs_err"])
-    return list(table.values())
+    return table_rows(results)
 
 
 def match_wrappers():
@@ -1427,16 +1548,10 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     from sift3d_torch.match.register import SimilarityTransform
     from sift3d_torch.pipeline.extract import extract_features
 
-    grid = [(dz, dy, dx) for dz in range(-4, 5) for dy in range(-4, 5) for dx in range(-4, 5) if (dz, dy, dx) != (0, 0, 0)]
-    shifts = [grid[i] for i in np.random.default_rng(3).choice(len(grid), 31, replace=False)]
+    vols, shifts = shifted_volumes(base)
     names, rows = [], []
     t0 = time.perf_counter()
-    for i in range(32):
-        vol = base
-        if i:
-            gen = torch.Generator(device=dev).manual_seed(100 + i)
-            vol = torch.roll(base, shifts[i - 1], dims=(0, 1, 2)) + torch.randn(
-                base.shape, generator=gen, device=dev)
+    for i, vol in enumerate(vols):
         feats = extract_features(vol, cfg, device=dev)
         names.append(f"img{i:02d}.key")
         rows.append(keyfile.write_text(feats, os.path.join(tmp, names[-1]), eig_threshold=cfg.eig_threshold))
@@ -1554,6 +1669,95 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
             raise AssertionError(f"featmatch {flags}: the card disagrees with the CPU or ran no kernel")
 
 
+BATCHES = (1, 4, 8, 16, 32)
+FEATURE_FIELDS = ("xyz", "scale", "ori", "eigs", "info", "desc")
+
+
+def batched_runs(base, cfg) -> dict:
+    """Phase 12: extract_features_many on phase 10's 32 T1-grid volumes,
+    the first B for B in BATCHES. Every volume's features equal
+    extract_features on it alone, bit for bit; for each B the median wall
+    of 5 calls after a warm-up, volumes/s, device busy ms and launch calls
+    a volume and the idle share from one torch.profiler trace, the device
+    peak, and the launches a batch of K7, K1, the fused K2, K3, the fused K4
+    and goh (K1 once per octave, not per volume). Then a mixed batch (a
+    T1-grid volume, zeros on the T1 grid, a -2- grid volume) on the card
+    against the same batch on the CPU, exact. Returns the B = 4 run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels.resample import subsample_2x
+    from sift3d_torch.pipeline import features, pyramid
+    from sift3d_torch.pipeline.extract import extract_features, extract_features_many
+
+    dev = base.device
+    wrappers = {"blur3d": gauss_cuda.blur3d, "dogs_extrema": extrema_cuda.dogs_extrema,
+                "gather_eig": features.gather_eig, "hist_topk": hist_cuda.hist_topk,
+                "rotated_goh": patch_cuda.rotated_goh, "goh": patch_cuda.goh}
+    vols, _ = shifted_volumes(base)
+    singles = [extract_features(v, cfg, device=dev) for v in vols]
+    n_oct = pyramid.num_octaves(tuple(base.shape), cfg)
+
+    def equal(a, b):
+        return len(a) == len(b) and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in FEATURE_FIELDS)
+
+    def call(batch, **kw):
+        return extract_features_many(batch, cfg, device=dev, **kw)
+
+    first = None
+    for nb in BATCHES:
+        batch = vols[:nb]
+        got = call(batch)  # the warm-up, and the check
+        same = [equal(g, w) for g, w in zip(got, singles)]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        call(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(batch)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        marks = stage_marks()
+        prof = device_profile(lambda: call(batch, timer=marks))
+        if prof is None:
+            traced = "device time not measured (no device events)"
+        else:
+            busy, _, _, n_launch, _, per_stage = prof
+            traced = (f"device busy {busy!r} ms ({busy / nb!r} a volume), {n_launch} launch calls "
+                      f"({n_launch / nb!r} a volume; [launch calls, stage calls] by stage "
+                      f"{json.dumps({k: [v, marks.counts[k]] for k, v in per_stage.items()})}), idle share "
+                      f"{1 - busy / wall!r} of the median wall")
+        print(f"phase12 extract_features_many B {nb} on {dev}: {sum(len(g) for g in got)} features; equal to "
+              f"extract_features on each volume alone {all(same)}; wall_ms {walls!r} (median {wall!r}, "
+              f"{wall / nb!r} a volume, {nb / wall * 1e3!r} volumes/s); {traced}; device peak {peak} B; "
+              f"launches a batch {json.dumps(launches)}")
+        if not all(same) or launches["dogs_extrema"] != n_oct or min(launches.values()) <= 0:
+            raise AssertionError(f"batched extraction at B {nb} differs from single-volume extraction or "
+                                 f"missed a kernel: {same}, {launches}")
+        if nb == 4:
+            first = launches
+        del got
+    mixed = [vols[1], torch.zeros_like(base), subsample_2x(vols[2])]
+    on_card = call(mixed)
+    on_cpu = extract_features_many([v.cpu() for v in mixed], cfg, device="cpu")
+    same = [equal(a, b) for a, b in zip(on_card, on_cpu)]
+    print(f"phase12 mixed batch (T1 grid, zeros on the T1 grid, -2- grid) card vs CPU: features "
+          f"{[len(f) for f in on_card]} / {[len(f) for f in on_cpu]}; equal bit for bit {same}")
+    if not (all(same) and len(on_card[1]) == 0 and len(on_card[0]) > 0 and len(on_card[2]) > 0):
+        raise AssertionError(f"batched extraction on the card disagrees with the CPU on the mixed batch: {same}")
+    return first
+
+
 # profiler names of the kernels whose wrapper is named otherwise
 TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",),
                "rotated_goh": ("::goh_kernel<true>",), "goh": ("::goh_kernel<false>",)}
@@ -1619,6 +1823,7 @@ def main() -> int:
     vol_np = synthetic_blob_texture(FULL_DIMS, seed=7)
     vol = torch.from_numpy(vol_np).to(dev)
     kernels = compare_kernels(vol, cfg)
+    kernels += compare_batched(vol, cfg)
     kernels += compare_matching(extract_features(vol, cfg, device=dev), cfg, dev)
 
     wrappers = {
@@ -1773,6 +1978,10 @@ def main() -> int:
         launches.update(featmatch_full_width(vol, cfg, dev, tmp))
     with tempfile.TemporaryDirectory() as tmp:
         featmatch_card_vs_cpu(tmp)
+    # the batched rows' launches are phase 12's at B = 4
+    batched = batched_runs(vol, cfg)
+    launches.update(dogs_extrema_batch=batched["dogs_extrema"], gather_eig_union=batched["gather_eig"],
+                    rotated_goh_union=batched["rotated_goh"])
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

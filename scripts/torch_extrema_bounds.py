@@ -97,7 +97,7 @@ def main() -> int:
     out_m = torch.empty((3, *shape), dtype=torch.int8, device=dev)
 
     def k1(lib):
-        err = lib.sift3d_dogs_extrema(gs.data_ptr(), out_d.data_ptr(), out_m.data_ptr(), *shape,
+        err = lib.sift3d_dogs_extrema(gs.data_ptr(), out_d.data_ptr(), out_m.data_ptr(), 1, *shape,
                                       g1["ty"], g1["zr"], 0, stream)
         assert err == 0, err
 

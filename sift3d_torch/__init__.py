@@ -13,5 +13,9 @@ laid out like it:
 - :mod:`sift3d_torch.cli`       the featextract and featmatch command lines
 - ``csrc/``                     CUDA C++ sources (sm_90a), built on first use
 
-It never imports ``jax`` or ``sift3d``.
+It never imports ``jax`` or ``sift3d``. The extraction entry points are
+exported here: ``extract_features`` (one volume) and
+``extract_features_many`` (a list of volumes, same-shape ones batched).
 """
+
+from sift3d_torch.pipeline.extract import extract_features, extract_features_many  # noqa: F401

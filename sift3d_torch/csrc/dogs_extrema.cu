@@ -3,9 +3,11 @@
 //
 // Replaces the Pallas kernels sift3d/kernels/extrema_pallas.py:
 // dogs_extrema_pallas (_dogs_extrema_kernel, K1) and extrema_mask_pallas
-// (_extrema_kernel, K6). K1 takes one octave's 6 Gaussian levels and writes
-// the 5 DoGs g[l] - g[l+1] and the mask; K6 takes [B, 5, Z, Y, X] DoGs (the
-// Z-sharded path's one-plane-halo DoG slabs) and writes only the mask. The
+// (_extrema_kernel, K6). K1 takes a batch of B volumes' octave stacks,
+// [B, 6, Z, Y, X] Gaussian levels (batched extraction's one pyramid per shape
+// group), and writes the 5 DoGs g[l] - g[l+1] of each and the mask; K6 takes
+// [B, 5, Z, Y, X] DoGs (the Z-sharded path's one-plane-halo DoG slabs) and
+// writes only the mask. The
 // mask is int8 for DoG levels 1..3: +1 strictly above all 80 neighbours, -1
 // strictly below, 0 else; z, y, x outside [1, d-2] are 0.
 //
@@ -89,9 +91,10 @@ __device__ __forceinline__ float2 span_v(float2 a, float v) {
   return make_float2(max_nan(a.x, v), min_nan(a.y, v));
 }
 
-// kFromStack: `in` is a [6, Z, Y, X] Gaussian stack and the DoGs are also
-// written to `dogs`; else `in` is [B, 5, Z, Y, X] DoGs (blockIdx.z runs over
-// batch x z runs) and `dogs` is unused.
+// blockIdx.z runs over batch x z runs. kFromStack: `in` is [B, 6, Z, Y, X]
+// Gaussian stacks and the DoGs are also written to `dogs` [B, 5, Z, Y, X];
+// else `in` is [B, 5, Z, Y, X] DoGs and `dogs` is unused. Every offset into a
+// batch is size_t: a batch of T1 stacks passes 2^32 bytes.
 template <bool kFromStack, int TY>
 __device__ __forceinline__ void extrema_body(const float* __restrict__ in,
                                              float* __restrict__ dogs,
@@ -107,6 +110,7 @@ __device__ __forceinline__ void extrema_body(const float* __restrict__ in,
   const size_t vol = plane * Z;
   in += (size_t)b * NIN * vol;
   mask += (size_t)b * 3 * vol;
+  if (kFromStack) dogs += (size_t)b * NL * vol;
   const bool in_xy = x < X && y < Y;
   // the one thread of the grid that writes (z, y, x) for each z of its run:
   // a tile's inside columns and rows, and the volume's first and last ones
@@ -252,9 +256,9 @@ int launch_any(const float* in, float* dogs, int8_t* mask, int B, int Z, int Y, 
 
 }  // namespace
 
-extern "C" int sift3d_dogs_extrema(const float* g, float* dogs, int8_t* mask, int Z, int Y, int X,
-                                   int ty, int zr, int device, void* stream) {
-  return launch_any(g, dogs, mask, 1, Z, Y, X, ty, zr, device, stream);
+extern "C" int sift3d_dogs_extrema(const float* g, float* dogs, int8_t* mask, int B, int Z, int Y,
+                                   int X, int ty, int zr, int device, void* stream) {
+  return launch_any(g, dogs, mask, B, Z, Y, X, ty, zr, device, stream);
 }
 
 extern "C" int sift3d_extrema_mask(const float* dogs, int8_t* mask, int B, int Z, int Y, int X,

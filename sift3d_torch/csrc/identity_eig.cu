@@ -31,7 +31,11 @@
 //
 // The volume may be a Z slab (the Z-sharded path): the Gaussian slab starts
 // at global plane gz0 of an octave `depth` planes deep, the DoG slab at dz0;
-// candidate z stays global.
+// candidate z stays global. Or a batch of B volumes of one shape (batched
+// extraction's candidate union): a row's volume index vi picks level
+// vi * L + l of the [B, L, Z, Y, X] Gaussian stacks and vi * ND + l of the
+// [B, ND, ZD, Y, X] DoGs, and l alone picks the sigmas (size_t offsets: a
+// batch passes 2^32 bytes).
 
 #include "common.cuh"
 
@@ -184,17 +188,18 @@ struct Sigmas {
   float v[kMaxLevels];
 };
 
-// lvl [R] and zyx [R, 3] are the candidate table's int64 columns. A row
-// whose level or voxel leaves the DoG slab's interior (the candidate tables
-// never give one) comes back NaN, neither in bounds nor kept.
+// lvl [R], zyx [R, 3] and vi [R] (null: one volume) are the candidate
+// table's int64 columns. A row whose volume, level or voxel leaves the DoG
+// slab's interior (the candidate tables never give one) comes back NaN,
+// neither in bounds nor kept.
 __global__ void __launch_bounds__(sift3d::kRowThreads)
 identity_eig_kernel(const float* __restrict__ g, const float* __restrict__ dogs,
                     const int64_t* __restrict__ lvl, const int64_t* __restrict__ zyx,
-                    const Sigmas sig, float* __restrict__ xyz_out,
+                    const int64_t* __restrict__ vi, const Sigmas sig, float* __restrict__ xyz_out,
                     float* __restrict__ scale_out, float* __restrict__ pn_out,
                     float* __restrict__ eigs_out, float* __restrict__ ori_out,
-                    bool* __restrict__ in_bounds, bool* __restrict__ keep, float thr, int L, int Z,
-                    int ND, int ZD, int Y, int X, int gz0, int dz0, int depth) {
+                    bool* __restrict__ in_bounds, bool* __restrict__ keep, float thr, int B, int L,
+                    int Z, int ND, int ZD, int Y, int X, int gz0, int dz0, int depth) {
   __shared__ float p[kPatchVox];
   __shared__ float red[6 * kRowThreads];
   __shared__ int idx[3][kPatchDim];
@@ -203,14 +208,16 @@ identity_eig_kernel(const float* __restrict__ g, const float* __restrict__ dogs,
   __shared__ int live;
   const int r = blockIdx.x;
   const int l = (int)lvl[r];
+  const int64_t v = vi == nullptr ? 0 : vi[r];
+  const int b = v >= 0 && v < B ? (int)v : -1;  // the row's volume; -1: outside the batch
   const int z = (int)zyx[r * 3 + 0], y = (int)zyx[r * 3 + 1], x = (int)zyx[r * 3 + 2];
   const int zl = z - dz0;  // plane in the DoG slab; abscissae stay global
   if (threadIdx.x == 0) {
-    live = l >= 1 && l + 1 < ND && l < L && zl >= 1 && zl + 1 < ZD && y >= 1 && y + 1 < Y &&
-           x >= 1 && x + 1 < X;
+    live = b >= 0 && l >= 1 && l + 1 < ND && l < L && zl >= 1 && zl + 1 < ZD && y >= 1 &&
+           y + 1 < Y && x >= 1 && x + 1 < X;
     if (live) {
       auto d = [&](int lv, int zz, int yy, int xx) {
-        return dogs[(((size_t)lv * ZD + zz) * Y + yy) * X + xx];
+        return dogs[((((size_t)b * ND + lv) * ZD + zz) * Y + yy) * X + xx];
       };
       const float dc = d(l, zl, y, x);
       const float fx = quadratic_interp(d(l, zl, y, x - 1), dc, d(l, zl, y, x + 1), (float)(x - 1),
@@ -254,7 +261,7 @@ identity_eig_kernel(const float* __restrict__ g, const float* __restrict__ dogs,
   }
   __syncthreads();
   const size_t sz = (size_t)Y * X;
-  const float* gl = g + (size_t)l * Z * sz;
+  const float* gl = g + ((size_t)b * L + l) * Z * sz;
   for (int t = threadIdx.x; t < kPatchVox; t += blockDim.x) {
     const int kz = t / (kPatchDim * kPatchDim), ky = (t / kPatchDim) % kPatchDim, kx = t % kPatchDim;
     const float* q = gl + (size_t)idx[2][kz] * sz + (size_t)idx[1][ky] * X + idx[0][kx];
@@ -295,16 +302,17 @@ identity_eig_kernel(const float* __restrict__ g, const float* __restrict__ dogs,
 
 }  // namespace
 
-// sig: ND level sigmas in host memory (ND <= 8).
+// sig: ND level sigmas in host memory (ND <= 8); vi: null for one volume (B = 1).
 extern "C" int sift3d_identity_eig(const float* g, const float* dogs, const int64_t* lvl,
-                                   const int64_t* zyx, const float* sig, float* xyz, float* scale,
-                                   float* pn, float* eigs, float* ori, bool* in_bounds, bool* keep,
-                                   float thr, int R, int L, int Z, int ND, int ZD, int Y, int X,
-                                   int gz0, int dz0, int depth, int device, void* stream) {
+                                   const int64_t* zyx, const int64_t* vi, const float* sig,
+                                   float* xyz, float* scale, float* pn, float* eigs, float* ori,
+                                   bool* in_bounds, bool* keep, float thr, int R, int B, int L,
+                                   int Z, int ND, int ZD, int Y, int X, int gz0, int dz0,
+                                   int depth, int device, void* stream) {
   if (ND > kMaxLevels) return (int)cudaErrorInvalidValue;
   Sigmas s = {};
   for (int i = 0; i < ND; ++i) s.v[i] = sig[i];
   SIFT3D_LAUNCH(device, identity_eig_kernel, dim3(R), dim3(sift3d::kRowThreads), stream, g, dogs, lvl,
-                zyx, s, xyz, scale, pn, eigs, ori, in_bounds, keep, thr, L, Z, ND, ZD, Y, X, gz0, dz0,
-                depth);
+                zyx, vi, s, xyz, scale, pn, eigs, ori, in_bounds, keep, thr, B, L, Z, ND, ZD, Y, X, gz0,
+                dz0, depth);
 }

@@ -44,9 +44,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures; every entry ends with (int device, void* stream)
 SIGNATURES = {
-    # g [6,Z,Y,X] f32, dogs [5,Z,Y,X] f32, mask [3,Z,Y,X] i8, Z, Y, X, ty, zr
+    # g [B,6,Z,Y,X] f32, dogs [B,5,Z,Y,X] f32, mask [B,3,Z,Y,X] i8, B, Z, Y, X, ty, zr
     # (extrema_cuda.extrema_launch_geometry)
-    "sift3d_dogs_extrema": (_P, _P, _P, _I, _I, _I, _I, _I),
+    "sift3d_dogs_extrema": (_P, _P, _P, _I, _I, _I, _I, _I, _I),
     # dogs [B,5,Z,Y,X] f32, mask [B,3,Z,Y,X] i8, B, Z, Y, X, ty, zr
     "sift3d_extrema_mask": (_P, _P, _I, _I, _I, _I, _I, _I),
     # cx, cy, cz, w [C,V], band [11,11], out [C,k,16], C, V, k
@@ -61,10 +61,11 @@ SIGNATURES = {
     # in, out, tmp [B,Z,Y,X] f32, taps [2r+1] f32 and geom [6] i32 in host memory
     # (gauss_cuda.blur_launch_geometry), r, B, Z, Y, X
     "sift3d_blur3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
-    # gstack [L,Z,Y,X], dogs [ND,ZD,Y,X], lvl [R] i64, zyx [R,3] i64, sigmas [ND] f32 in host
-    # memory; out xyz [R,3], scale [R], pn [R,1331], eigs [R,3], ori [R,3,3], in_bounds [R] and
-    # eig_keep [R] bool; eig_threshold, R, L, Z, ND, ZD, Y, X, gz0, dz0, depth
-    "sift3d_identity_eig": (_P,) * 12 + (_F,) + (_I,) * 10,
+    # gstack [B,L,Z,Y,X], dogs [B,ND,ZD,Y,X], lvl [R] i64, zyx [R,3] i64, vi [R] i64 (volume
+    # index; null: B = 1), sigmas [ND] f32 in host memory; out xyz [R,3], scale [R], pn [R,1331],
+    # eigs [R,3], ori [R,3,3], in_bounds [R] and eig_keep [R] bool; eig_threshold, R, B, L, Z, ND,
+    # ZD, Y, X, gz0, dz0, depth
+    "sift3d_identity_eig": (_P,) * 13 + (_F,) + (_I,) * 11,
     # gstack, lvl, centers, scales, oris [R,3,3], out [R,64] u8, R, L, Z, Y, X, z0, depth
     "sift3d_rotated_goh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # patches [R,11,11,11], out [R,64] u8, R

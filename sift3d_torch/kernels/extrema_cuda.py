@@ -1,8 +1,9 @@
 """K1 and K6: strict 80-neighbour extrema masks (CUDA kernels + plain forms).
 
 K1 :func:`dogs_extrema` replaces the Pallas kernel ``sift3d.kernels.
-extrema_pallas.dogs_extrema_pallas``: DoGs of a Gaussian stack and their
-mask, fused. K6 :func:`extrema_mask` replaces ``extrema_mask_pallas``: the
+extrema_pallas.dogs_extrema_pallas``: DoGs of a Gaussian stack, or of a
+batch of them (batched extraction's stacked pyramid), and their mask,
+fused. K6 :func:`extrema_mask` replaces ``extrema_mask_pallas``: the
 mask of precomputed DoGs, which is what the Z-sharded path runs on each
 shard's one-plane-halo DoG slab. Both are entries of ``csrc/
 dogs_extrema.cu``. Each runs the plain PyTorch version for a CPU tensor
@@ -75,32 +76,38 @@ def extrema_launch_geometry(shape, kernel: str, n_sm: int = H100_SMS) -> dict:
 
 def dogs_extrema_plain(gstack: torch.Tensor):
     """[6, Z, Y, X] Gaussian stack -> (dogs [5, Z, Y, X] f32, mask
-    [3, Z, Y, X] int8)."""
-    dogs = gstack[:-1] - gstack[1:]
-    return dogs, plain.extrema_mask(dogs)
+    [3, Z, Y, X] int8); a [B, 6, Z, Y, X] batch -> [B, 5, ...] and
+    [B, 3, ...] (the mask by a loop over the volumes)."""
+    dogs = gstack[..., :-1, :, :, :] - gstack[..., 1:, :, :, :]
+    return dogs, extrema_mask_plain(dogs)
 
 
 def dogs_extrema(gstack: torch.Tensor):
-    """DoGs + extrema mask of one octave's [6, Z, Y, X] Gaussian stack."""
+    """DoGs + extrema mask of one octave's [6, Z, Y, X] Gaussian stack, or
+    of a [B, 6, Z, Y, X] batch in one launch (see dogs_extrema_plain)."""
     if cuda_lib.route(gstack) == "plain":
         return dogs_extrema_plain(gstack)
-    cuda_lib.require_cuda(gstack, "gstack", torch.float32, 4)
-    if gstack.shape[0] != 6:
+    if gstack.ndim not in (4, 5):
+        raise ValueError(f"expected [6, Z, Y, X] or [B, 6, Z, Y, X], got {tuple(gstack.shape)}")
+    cuda_lib.require_cuda(gstack, "gstack", torch.float32, gstack.ndim)
+    batch = gstack if gstack.ndim == 5 else gstack[None]
+    b, nl, z, y, x = batch.shape
+    if nl != 6:
         raise ValueError(f"gstack must hold 6 levels, got {tuple(gstack.shape)}")
-    _, z, y, x = gstack.shape
-    geom = extrema_launch_geometry((1, z, y, x), "dogs_extrema", sm_count(gstack.device))
-    return _launch_dogs(gstack, geom)
+    geom = extrema_launch_geometry((b, z, y, x), "dogs_extrema", sm_count(gstack.device))
+    dogs, mask = _launch_dogs(batch, geom)
+    return (dogs, mask) if gstack.ndim == 5 else (dogs[0], mask[0])
 
 
-def _launch_dogs(gstack: torch.Tensor, geom: dict):
-    """K1 on a contiguous f32 [6, Z, Y, X] CUDA stack at launch geom
+def _launch_dogs(batch: torch.Tensor, geom: dict):
+    """K1 on a contiguous f32 [B, 6, Z, Y, X] CUDA batch at launch geom
     (``extrema_launch_geometry``'s form)."""
-    _, z, y, x = gstack.shape
-    dogs = torch.empty((5, z, y, x), dtype=torch.float32, device=gstack.device)
-    mask = torch.empty((3, z, y, x), dtype=torch.int8, device=gstack.device)
+    b, _, z, y, x = batch.shape
+    dogs = torch.empty((b, 5, z, y, x), dtype=torch.float32, device=batch.device)
+    mask = torch.empty((b, 3, z, y, x), dtype=torch.int8, device=batch.device)
     if mask.numel():
-        cuda_lib.launch("sift3d_dogs_extrema", gstack, dogs, mask, z, y, x, geom["ty"], geom["zr"],
-                        device=gstack.device)
+        cuda_lib.launch("sift3d_dogs_extrema", batch, dogs, mask, b, z, y, x, geom["ty"], geom["zr"],
+                        device=batch.device)
         dogs_extrema.launches += 1
     return dogs, mask
 

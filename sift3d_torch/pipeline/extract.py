@@ -1,25 +1,32 @@
-"""End-to-end single-volume feature extraction, run eagerly.
+"""Feature extraction, single-volume and batched, run eagerly.
 
-PyTorch port of ``sift3d.pipeline.extract.extract_features`` with GoH
-descriptors and reoriented copies (the `featextract in.nii out.key` path):
+PyTorch port of ``sift3d.pipeline.extract.extract_features_many`` (and
+``extract_features``, its batch of one) with GoH descriptors and reoriented
+copies (the `featextract in.nii out.key` path). Volumes of one shape advance
+together as one [B, Z, Y, X] batch:
 
-  initial blur -> per octave: Gaussian stack, DoGs + extrema (K1)
-               -> candidate table (nonzero + stable sort)
+  initial blur -> per octave: Gaussian stacks, DoGs + extrema (K1), one
+                  launch each for the batch
+               -> one candidate union (nonzero + stable sort; volume index vi)
                -> refinement, bounds test, identity patches (K2), eigen test
                -> canonical orientations (K3)
                -> rotated patches (K4), GoH descriptors
-               -> rows in reference push order, geometry x 2^octave
+               -> rows sorted by (volume, reference push order), split per
+                  volume, geometry x 2^octave
 
-Every count is exact, so no capacity buckets, chunk programs or streams
+so the launches and host syncs of an octave are paid once per shape group,
+not once per volume, and every volume's rows equal its rows alone, bit for
+bit. Every count is exact, so no capacity buckets, chunk programs or streams
 are needed (the JAX package's exist for XLA's static shapes and a remote
-TPU runtime). The entry points run on the card unless the caller passes
-device="cpu". A volume too large for one card goes through
+TPU runtime; its ``streams`` option changes no result and is not ported).
+The entry points run on the card unless the caller passes device="cpu". A
+volume too large for one card goes through
 ``sift3d_torch.dist.spatial.extract_features_spatial``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,41 +38,67 @@ from sift3d_torch.pipeline import features, pyramid
 from sift3d_torch.utils.timing import StageTimer
 
 
-def extract_octaves(
-    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
-    *, initial_image_scale: float = 1.0, descriptor: str = "goh",
-    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None, pre_blurred: bool = False,
-) -> Iterator[Tuple[int, dict]]:
-    """Yield (octave, rows) for every octave that emits features; rows is
-    ``features.emit_octave``'s dict (octave-local geometry, rows sorted in
-    reference push order). device, initial_image_scale, descriptor and
-    on_gstack as in :func:`extract_features`; pre_blurred: img is already
-    an octave base (the tail octaves of the Z-sharded path), so the
-    initial blur is skipped."""
-    dev = resolve_device(device, like=img)
-    timer = timer or StageTimer(enabled=False)
-    sigmas = tuple(cfg.level_sigmas())
+def _volume(img, dev: torch.device) -> torch.Tensor:
+    """img (numpy array or tensor) as a contiguous f32 [Z, Y, X] tensor on dev."""
     if not isinstance(img, torch.Tensor):
         # a copy: the NIfTI reader's arrays are read-only
         img = torch.from_numpy(np.array(img, np.float32))
     vol = img.to(device=dev, dtype=torch.float32).contiguous()
     if vol.ndim != 3:
         raise ValueError(f"expected a [Z, Y, X] volume, got shape {tuple(vol.shape)}")
+    return vol
+
+
+def _batch_octaves(
+    batch: torch.Tensor, cfg: SiftConfig, timer: StageTimer, initial_image_scale: float,
+    descriptor: str, on_gstack: Optional[Callable[[int, torch.Tensor], None]], pre_blurred: bool,
+) -> Iterator[Tuple[int, dict]]:
+    """The body of every entry point: a [B, Z, Y, X] batch of same-shape
+    volumes through the pyramid and the feature stage, octave by octave.
+    Yields (octave, rows) for every octave that emits features; rows is
+    ``features.emit_octave``'s dict (octave-local geometry, column vi),
+    sorted by volume, then reference push order. on_gstack(octave, gstack)
+    gets each octave's [B, 6, Z, Y, X] stack."""
+    sigmas = tuple(cfg.level_sigmas())
     if pre_blurred:
-        base = vol
+        base = batch
     else:
         with timer.stage("initial_blur"):
-            base = pyramid.initial_blur_core(vol, cfg, initial_image_scale)
-    for octave in range(pyramid.num_octaves(tuple(vol.shape), cfg)):
+            base = pyramid.initial_blur_core(batch, cfg, initial_image_scale)
+    for octave in range(pyramid.num_octaves(tuple(batch.shape[1:]), cfg)):
         with timer.stage("pyramid"):
             gstack, dogs, mask, base = pyramid.octave_core(base, cfg)
         if on_gstack is not None:
             on_gstack(octave, gstack)
         rows = features.emit_octave(gstack, dogs, mask, cfg, sigmas, timer, descriptor)
+        del gstack, dogs, mask
         if rows is None:
             continue
         order = torch.argsort(rows["key"], stable=True)
+        order = order[torch.argsort(rows["vi"][order], stable=True)]
         yield octave, {k: v[order] for k, v in rows.items()}
+
+
+def extract_octaves(
+    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    *, initial_image_scale: float = 1.0, descriptor: str = "goh",
+    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None, pre_blurred: bool = False,
+) -> Iterator[Tuple[int, dict]]:
+    """Yield (octave, rows) for every octave of one volume that emits
+    features: the batched body on a batch of one. rows is
+    ``features.emit_octave``'s dict without vi (octave-local geometry, rows
+    sorted in reference push order). device, initial_image_scale,
+    descriptor and on_gstack as in :func:`extract_features`; pre_blurred:
+    img is already an octave base (the tail octaves of the Z-sharded path),
+    so the initial blur is skipped."""
+    vol = _volume(img, resolve_device(device, like=img))
+    hook = None if on_gstack is None else (lambda octave, gstack: on_gstack(octave, gstack[0]))
+    for octave, rows in _batch_octaves(
+        vol[None], cfg, timer or StageTimer(enabled=False), initial_image_scale, descriptor, hook,
+        pre_blurred,
+    ):
+        del rows["vi"]
+        yield octave, rows
 
 
 def extract_features(
@@ -95,6 +128,47 @@ def extract_features(
         )
     ]
     return FeatureSet.concatenate(parts)
+
+
+def extract_features_many(
+    imgs: Sequence, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    *, initial_image_scale: float = 1.0, descriptor: str = "goh", pre_blurred: bool = False,
+) -> List[FeatureSet]:
+    """Extract features from several [Z, Y, X] volumes (numpy arrays or
+    tensors); returns one FeatureSet per input, in input order, each equal
+    bit for bit to :func:`extract_features` on that volume alone.
+
+    Volumes of one shape advance together: one stacked pyramid per shape
+    group and one candidate union per (group, octave), so the kernel
+    launches and host syncs of an octave are paid once per group
+    (``sift3d.pipeline.extract.extract_features_many``). A volume without
+    features gives an empty set. device, timer, initial_image_scale and
+    descriptor as in :func:`extract_features`; pre_blurred as in
+    :func:`extract_octaves`. The JAX package's ``streams`` (a TPU runtime's
+    overlap of host reads with device work) is not ported; it changes no
+    result.
+    """
+    dev = resolve_device(device, like=imgs[0] if len(imgs) else None)
+    timer = timer or StageTimer(enabled=False)
+    vols = [_volume(img, dev) for img in imgs]
+    groups: dict = {}
+    for i, vol in enumerate(vols):
+        groups.setdefault(tuple(vol.shape), []).append(i)
+    parts = [[] for _ in vols]
+    for vol_ids in groups.values():
+        batch = torch.stack([vols[i] for i in vol_ids])
+        for octave, rows in _batch_octaves(
+            batch, cfg, timer, initial_image_scale, descriptor, None, pre_blurred
+        ):
+            host = {k: v.cpu().numpy() for k, v in rows.items()}
+            # rows are sorted by volume: volume b's are one run
+            bounds = np.searchsorted(host["vi"], np.arange(len(vol_ids) + 1))
+            for b, vol_i in enumerate(vol_ids):
+                lo, hi = bounds[b], bounds[b + 1]
+                if hi > lo:
+                    parts[vol_i].append(octave_features({k: v[lo:hi] for k, v in host.items()}, octave))
+        del batch
+    return [FeatureSet.concatenate(p) for p in parts]
 
 
 def octave_features(rows: dict, octave: int) -> FeatureSet:

@@ -85,7 +85,8 @@ def test_extract_matches_jax_on_48_cells(cell, monkeypatch):
     # witness: the port's feature stage on the JAX package's own pyramid
     octaves = iter(_jax_octaves(vol))
     monkeypatch.setattr(tx_pyramid, "initial_blur_core", lambda img, cfg, initial_image_scale=1.0: img)
-    monkeypatch.setattr(tx_pyramid, "octave_core", lambda base, cfg: (*next(octaves), base))
+    # the extraction body runs a batch of one: the stacks gain a leading axis
+    monkeypatch.setattr(tx_pyramid, "octave_core", lambda base, cfg: (*(t[None] for t in next(octaves)), base))
     got = extract_features(vol, device="cpu")
     desc_eq = (got.desc == want.desc).all(axis=1).mean() if len(got) == len(want) else 0.0
     print(f"{cell}: jax pyramid: port {len(got)} features, identical descriptors {desc_eq:.4f}")

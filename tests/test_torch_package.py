@@ -7,7 +7,10 @@
   M2 ratio test, M3 Hough scores) too.
 - On a CUDA card (marker `cuda`, skipped without one), every kernel equals
   its plain version on the same tensors; the blur (K7) equals its plain
-  version run on the CPU (cuBLAS on the card sums in another order). This file imports no JAX, so it
+  version run on the CPU (cuBLAS on the card sums in another order); the
+  batched calls of batched extraction (K1 on [B, 6, Z, Y, X], the fused K2
+  with a volume index, the fused K4 and K4's patch mode on the flattened
+  [B * 6, Z, Y, X] stack) equal per-volume calls of the same kernels. This file imports no JAX, so it
   also runs where JAX is missing: python -m pytest --noconftest -m cuda
   tests/test_torch_package.py
 """
@@ -232,3 +235,54 @@ def test_kernels_match_plain_on_the_card(rng):
         torch.cuda.synchronize()
         assert wrapper.launches == before + 1
         assert _equal(got, want), name
+
+
+@pytest.mark.cuda
+def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
+    """K1 on a batch of three stacks, the fused K2 on their candidate union
+    (volume index vi) and the fused K4 / K4's patch mode on the flattened
+    [3 * 6, Z, Y, X] stack: one launch each, equal to the plain version on
+    the same tensors and to per-volume launches of the same kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda:0")
+    cfg = SiftConfig()
+    sig = tuple(cfg.level_sigmas())
+    gs, _, centers, scales, oris, _, _ = _inputs(rng)
+    batch = torch.stack([gs, gs.flip(1), gs * 0.5]).to(dev).contiguous()
+    before = extrema_cuda.dogs_extrema.launches
+    dogs, mask = extrema_cuda.dogs_extrema(batch)
+    assert extrema_cuda.dogs_extrema.launches == before + 1
+    assert _equal((dogs, mask), extrema_cuda.dogs_extrema_plain(batch))
+    for b in range(3):
+        assert _equal((dogs[b], mask[b]), extrema_cuda.dogs_extrema(batch[b].contiguous()))
+    # the fused K2 on _candidates' rows in each volume, as one union
+    cdogs, lvl, zyx = _candidates(gs)
+    cdogs = torch.stack([cdogs, cdogs.flip(1), cdogs * 2.0]).to(dev).contiguous()
+    vi = torch.arange(3).repeat_interleave(lvl.shape[0]).to(dev)
+    lvl, zyx = lvl.repeat(3).to(dev), zyx.repeat(3, 1).to(dev)
+    before = features.gather_eig.launches
+    got = features.gather_eig(batch, cdogs, lvl, zyx, sig, cfg, vi=vi)
+    assert features.gather_eig.launches == before + 1
+    assert _equal(got, features.gather_eig_plain(batch, cdogs, lvl, zyx, sig, cfg, vi=vi))
+    for b in range(3):
+        sel = vi == b
+        want = features.gather_eig(batch[b].contiguous(), cdogs[b].contiguous(), lvl[sel], zyx[sel], sig, cfg)
+        assert _equal(tuple(t[sel] for t in got), want)
+    # the fused K4 and K4's patch mode: volume vi's level l is level 6 vi + l
+    r = centers.shape[0]
+    rvi = torch.from_numpy(rng.integers(0, 3, r)).to(dev)
+    rlvl = torch.from_numpy(rng.integers(1, 4, r)).to(dev)
+    rows = [t.to(dev) for t in (centers, scales, oris)]
+    flat = batch.flatten(0, 1)
+    glvl = (rvi * 6 + rlvl).to(torch.int32)
+    for wrapper, plain in ((patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain),
+                           (patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain)):
+        before = wrapper.launches
+        got = wrapper(flat, glvl, *rows)
+        assert wrapper.launches == before + 1
+        assert _equal(got, plain(flat, glvl, *rows))
+        for b in range(3):
+            sel = rvi == b
+            want = wrapper(batch[b].contiguous(), rlvl[sel].to(torch.int32), *(t[sel] for t in rows))
+            assert _equal(got[sel], want)
