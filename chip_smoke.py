@@ -1417,6 +1417,14 @@ def similarity_matches(m: int, seed: int):
     return [np.ascontiguousarray(a, np.float32) for a in (p0, p1, s0, s1, o0, o1)]
 
 
+def tiled_goh_rows(feats):
+    """M1's first phase-2 input: the extraction's GoH rows tiled to
+    MATCH_ROWS rows."""
+    import numpy as np
+
+    return np.tile(feats.desc, (-(-MATCH_ROWS // len(feats)), 1))[:MATCH_ROWS]
+
+
 def compare_matching(feats, cfg, dev):
     """Phase 2 for the matching kernels, each against its plain version on
     the same CUDA tensors, exact: M1 (kNN) at MATCH_ROWS rows, k = 5, on the
@@ -1434,7 +1442,7 @@ def compare_matching(feats, cfg, dev):
     rng = np.random.default_rng(5)
     n = MATCH_ROWS
     reps = -(-n // len(feats))
-    goh = np.tile(feats.desc, (reps, 1))[:n]
+    goh = tiled_goh_rows(feats)
     # the -g columns: each tiled copy as another image, shifted by up to 4 voxels
     xyz = (np.tile(feats.xyz, (reps, 1)) + np.repeat(rng.integers(-4, 5, (reps, 3)), len(feats), 0))[:n]
     scale = np.tile(feats.scale, reps)[:n]
@@ -1539,7 +1547,9 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     transform is the single winning Hough hypothesis, whose rotation comes
     from one feature pair's orientation frames: its error is printed, not
     held (a rotation off by a few degrees moves the translation about the
-    origin by several voxels). Returns the second call's launches of M1-M3."""
+    origin by several voxels). Returns the second call's launches of M1-M3,
+    the .key names (in tmp) and the output files of the --all-to-all call
+    ({name: bytes}, without the .key inputs and _command.txt)."""
     import numpy as np
     import torch
 
@@ -1583,6 +1593,7 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
 
     try:
         hough_wall, _, hough_errs = run(["--all-to-all"])
+        snapshot = {f: open(f, "rb").read() for f in os.listdir(".") if f not in names and f != "_command.txt"}
         walls = []
         for _ in range(2):
             wall, stages, errs = run(["--all-to-all", "--refine"])
@@ -1603,7 +1614,7 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     )
     if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(launches.values()) <= 0:
         raise AssertionError(f"featmatch on the card missed a shift or a kernel: {errs.tolist()}, {launches}")
-    return launches
+    return launches, names, snapshot
 
 
 FEATMATCH_FLAG_SETS = [[], ["--all-to-all"], ["-s0"], ["-s1"], ["-s2", "--all-to-all"], ["-r-"],
@@ -1673,7 +1684,7 @@ BATCHES = (1, 4, 8, 16, 32)
 FEATURE_FIELDS = ("xyz", "scale", "ori", "eigs", "info", "desc")
 
 
-def batched_runs(base, cfg) -> dict:
+def batched_runs(base, cfg):
     """Phase 12: extract_features_many on phase 10's 32 T1-grid volumes,
     the first B for B in BATCHES. Every volume's features equal
     extract_features on it alone, bit for bit; for each B the median wall
@@ -1683,30 +1694,26 @@ def batched_runs(base, cfg) -> dict:
     and goh (K1 once per octave, not per volume). Then a mixed batch (a
     T1-grid volume, zeros on the T1 grid, a -2- grid volume) on the card
     against the same batch on the CPU, exact. Returns the B = 4 run's
-    launches."""
-    import numpy as np
+    launches, the median wall ms of each B and the features of all 32
+    volumes at B = 32."""
     import torch
 
-    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
     from sift3d_torch.kernels.resample import subsample_2x
-    from sift3d_torch.pipeline import features, pyramid
+    from sift3d_torch.pipeline import pyramid
     from sift3d_torch.pipeline.extract import extract_features, extract_features_many
 
     dev = base.device
-    wrappers = {"blur3d": gauss_cuda.blur3d, "dogs_extrema": extrema_cuda.dogs_extrema,
-                "gather_eig": features.gather_eig, "hist_topk": hist_cuda.hist_topk,
-                "rotated_goh": patch_cuda.rotated_goh, "goh": patch_cuda.goh}
+    wrappers = extraction_wrappers()
     vols, _ = shifted_volumes(base)
     singles = [extract_features(v, cfg, device=dev) for v in vols]
     n_oct = pyramid.num_octaves(tuple(base.shape), cfg)
 
-    def equal(a, b):
-        return len(a) == len(b) and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in FEATURE_FIELDS)
+    equal = same_features
 
     def call(batch, **kw):
         return extract_features_many(batch, cfg, device=dev, **kw)
 
-    first = None
+    first, walls_of, results = None, {}, None
     for nb in BATCHES:
         batch = vols[:nb]
         got = call(batch)  # the warm-up, and the check
@@ -1746,6 +1753,9 @@ def batched_runs(base, cfg) -> dict:
                                  f"missed a kernel: {same}, {launches}")
         if nb == 4:
             first = launches
+        walls_of[nb] = wall
+        if nb == max(BATCHES):
+            results = got
         del got
     mixed = [vols[1], torch.zeros_like(base), subsample_2x(vols[2])]
     on_card = call(mixed)
@@ -1755,7 +1765,245 @@ def batched_runs(base, cfg) -> dict:
           f"{[len(f) for f in on_card]} / {[len(f) for f in on_cpu]}; equal bit for bit {same}")
     if not (all(same) and len(on_card[1]) == 0 and len(on_card[0]) > 0 and len(on_card[2]) > 0):
         raise AssertionError(f"batched extraction on the card disagrees with the CPU on the mixed batch: {same}")
+    return first, walls_of, results
+
+
+PLACEMENT_ENTRIES = 4
+
+
+def extraction_wrappers():
+    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.pipeline import features
+
+    return {"blur3d": gauss_cuda.blur3d, "dogs_extrema": extrema_cuda.dogs_extrema,
+            "gather_eig": features.gather_eig, "hist_topk": hist_cuda.hist_topk,
+            "rotated_goh": patch_cuda.rotated_goh, "goh": patch_cuda.goh}
+
+
+def same_features(a, b) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(np.array_equal(getattr(a, k), getattr(b, k)) for k in FEATURE_FIELDS)
+
+
+def placement_runs(base, cfg, walls_of, want) -> dict:
+    """Phase 13, placement: extract_features_batch over PLACEMENT_ENTRIES
+    entries of cuda:0 (one host thread each, 8 volumes an entry) on phase
+    12's 32 volumes, and over every card when there are two or more. Each
+    volume equal to phase 12's B = 32 result (want), bit for bit; the
+    median wall of 5 calls after a warm-up beside phase 12's B = 8 and 32
+    walls, volumes/s, the device peak over one call, and the launches of
+    K7, K1, the fused K2, K3, the fused K4 and goh in one call, each > 0.
+    Returns those launches (the cuda:0 mesh's)."""
+    import torch
+
+    from sift3d_torch import extract_features_batch
+
+    dev = base.device
+    vols, _ = shifted_volumes(base)
+    wrappers = extraction_wrappers()
+    meshes = {f"{PLACEMENT_ENTRIES} x {dev}": [dev] * PLACEMENT_ENTRIES}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = None
+    first = None
+    for label, mesh in meshes.items():
+        got = extract_features_batch(vols, mesh, cfg)  # the warm-up, and the check
+        same = [same_features(g, w) for g, w in zip(got, want)]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        extract_features_batch(vols, mesh, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            extract_features_batch(vols, mesh, cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        print(f"phase13 extract_features_batch over {label} on {len(vols)} volumes {tuple(base.shape)}: "
+              f"{sum(len(g) for g in got)} features; equal to phase 12's extract_features_many bit for bit "
+              f"{all(same)}; wall_ms {walls!r} (median {wall!r}, {len(vols) / wall * 1e3!r} volumes/s; phase 12 "
+              f"median at B 8 {walls_of[8]!r}, at B 32 {walls_of[32]!r}); device peak on {dev} {peak} B; "
+              f"launches a call {json.dumps(launches)}")
+        if not all(same) or len(got) != len(want) or min(launches.values()) <= 0:
+            raise AssertionError(f"placement over {label} differs from batched extraction or missed a kernel: "
+                                 f"{same}, {launches}")
+        first = first or launches
+        del got
     return first
+
+
+def sharded_knn_run(feats, cfg, dev) -> int:
+    """Phase 13, the sharded kNN: sharded_knn over PLACEMENT_ENTRIES entries
+    of the card on phase 2's first M1 input (the GoH rows tiled to
+    MATCH_ROWS), exact against knn_search, M1 launched once per entry; its
+    median ms (CUDA events) beside one launch of M1 on the whole input.
+    Returns the launches of one sharded call."""
+    import torch
+
+    from sift3d_torch.dist.gather import sharded_knn
+    from sift3d_torch.kernels import knn_cuda
+    from sift3d_torch.match.knn import knn_search
+
+    x = torch.as_tensor(tiled_goh_rows(feats), dtype=torch.float32, device=dev)
+    k = cfg.knn_neighbors
+    mesh = [dev] * PLACEMENT_ENTRIES
+    want = knn_search(x, x, k, device=dev)
+    knn_cuda.knn_topk.launches = 0
+    got = sharded_knn(x, x, k, mesh)
+    torch.cuda.synchronize()
+    launches = knn_cuda.knn_topk.launches
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    sharded_ms = median_ms(lambda: sharded_knn(x, x, k, mesh))
+    single_ms = median_ms(lambda: knn_cuda.knn_topk(x, x, k))
+    print(f"phase13 sharded_knn over {len(mesh)} x {dev}, {x.shape[0]} x {x.shape[1]} rows, k={k}: equal to "
+          f"knn_search {exact}; M1 launches {launches}; {sharded_ms!r} ms (median of {REPS}, CUDA events) "
+          f"beside one M1 launch on all rows {single_ms!r} ms")
+    if not exact or launches != len(mesh):
+        raise AssertionError(f"sharded_knn differs from knn_search or launched M1 {launches} times")
+    return launches
+
+
+def shard_match_run(keys_dir: str, names, snapshot, dev, tmp: str) -> None:
+    """Phase 13, featmatch --all-to-all --shard-match on phase 10's .key
+    files, its kNN over PLACEMENT_ENTRIES entries of the card, then over
+    every card (the CLI's own mesh): every output file (but _command.txt,
+    which records the flags) byte-identical to phase 10's --all-to-all
+    call's; the group_vote stage's ms and launches."""
+    import shutil
+
+    from sift3d_torch.cli import featmatch
+
+    wrappers = match_wrappers()
+    here = os.getcwd()
+    for label, mesh in ((f"{PLACEMENT_ENTRIES} x {dev}", [dev] * PLACEMENT_ENTRIES), ("every card", None)):
+        work = tempfile.mkdtemp(prefix="shard_match_", dir=tmp)
+        for name in names:
+            shutil.copy(os.path.join(keys_dir, name), work)
+        for w in wrappers.values():
+            w.launches = 0
+        timer = launch_timer(wrappers)
+        os.chdir(work)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                # the CLI's default device is the card; another device is a rehearsal's
+                rc = featmatch.main(["--all-to-all", "--shard-match", *names], timer=timer, mesh=mesh,
+                                    device=None if dev.type == "cuda" else dev)
+        finally:
+            os.chdir(here)
+        files = sorted(f for f in os.listdir(work) if f not in names and f != "_command.txt")
+        differ = [f for f in files if f not in snapshot or not same_bytes_data(os.path.join(work, f), snapshot[f])]
+        missing = sorted(set(snapshot) - set(files))
+        stages = {k: [round(v, 3), timer.launches[k]] for k, v in timer.milliseconds().items()}
+        print(f"phase13 featmatch --all-to-all --shard-match over {label} on phase 10's {len(names)} .key files: "
+              f"rc {rc}; {len(files)} output files, byte-identical to phase 10's --all-to-all "
+              f"{not differ and not missing} (differ {differ}, missing {missing}); group_vote "
+              f"{timer.milliseconds().get('group_vote')!r} ms, [stage ms, launches] {json.dumps(stages)}")
+        if rc != 0 or differ or missing or timer.launches["group_vote"]["knn_topk"] <= 0:
+            raise AssertionError(f"featmatch --shard-match over {label} differs from phase 10's files")
+
+
+def same_bytes_data(path: str, data: bytes) -> bool:
+    with open(path, "rb") as f:
+        return f.read() == data
+
+
+def sharded_solve_run(dev) -> None:
+    """Phase 13, the weighted sharded solve: 100,000 seeded correspondences
+    of a similarity with noise and weights, over 1, 3 and PLACEMENT_ENTRIES
+    entries of the card, each bit-equal to the single-device solve on the
+    card and to the solve on the CPU."""
+    import numpy as np
+
+    from sift3d_torch.dist.solve import solve_similarity_sharded
+    from sift3d_torch.match.solve import solve_similarity
+
+    rng = np.random.default_rng(9)
+    p = rng.uniform(20, 160, (100_000, 3)).astype(np.float32)
+    q = (1.1 * p @ rotation(9).T + np.array([3.0, -2.0, 5.0]) + rng.normal(0, 1.0, p.shape)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, p.shape[0]).astype(np.float32)
+    want = solve_similarity(p, q, w, device=dev)
+    on_cpu = solve_similarity(p, q, w, device="cpu")
+
+    def equal(a, b):
+        return a[0] == b[0] and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2])
+
+    same = {n: equal(solve_similarity_sharded(p, q, w, [dev] * n), want) for n in (1, 3, PLACEMENT_ENTRIES)}
+    print(f"phase13 solve_similarity_sharded on {p.shape[0]} weighted correspondences: bit-equal to the "
+          f"single-device solve over [1, 3, {PLACEMENT_ENTRIES}] entries of {dev} {json.dumps(same)}; card = CPU "
+          f"{equal(want, on_cpu)}; scale {want[0]!r}")
+    if not all(same.values()) or not equal(want, on_cpu):
+        raise AssertionError(f"the sharded solve differs from the single-device solve: {same}")
+
+
+def multiprocess_run(base, cfg, want, tmp: str) -> None:
+    """Phase 13, two processes: scripts/torch_multihost_worker.py twice, both
+    on cuda:0, in one gloo process group (a file:// store in tmp), on the
+    first 4 of phase 12's volumes. Each rank's gathered sets equal phase
+    12's results bit for bit, and its rank-spanning group vote, sharded kNN
+    and solve equal this process's single-process calls; each rank's
+    extraction ms of its share and the exchange's ms (host clock after a
+    barrier) and bytes."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from sift3d_torch.match.groupvote import GroupMatcher
+    from sift3d_torch.match.knn import knn_search
+    from sift3d_torch.match.solve import solve_similarity
+
+    vols, _ = shifted_volumes(base, 4)
+    torch.cuda.empty_cache()  # the workers share the card with this process's cached blocks
+    np.save(os.path.join(tmp, "vols.npy"), np.stack([v.cpu().numpy() for v in vols]))
+    worker = os.path.join(HERE, "scripts", "torch_multihost_worker.py")
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    init = "file://" + os.path.join(tmp, "pg")
+    procs = [subprocess.Popen([sys.executable, worker, init, str(r), "2", os.path.join(tmp, "vols.npy"), outs[r],
+                               "--device", str(base.device)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=300)[0])
+    finally:
+        for pr in procs:
+            pr.kill()
+            pr.wait()
+    for r, pr in enumerate(procs):
+        if pr.returncode != 0:
+            raise AssertionError(f"multi-process rank {r} failed (rc {pr.returncode}):\n{logs[r][-4000:]}")
+    sets = want[:4]
+    vote = GroupMatcher(sets, device=base.device).match_all_to_all()
+    db = np.concatenate([s.desc for s in sets])
+    kd, ki = (t.cpu().numpy() for t in knn_search(db, db, 5, device=base.device))
+    checks = []
+    for r, path in enumerate(outs):
+        out = dict(np.load(path))
+        got = [all(np.array_equal(out[f"set{i}_{k}"], getattr(s, k)) for k in FEATURE_FIELDS)
+               for i, s in enumerate(sets)]
+        solve = solve_similarity(out["p"], out["q"], out["w"], device=base.device)
+        ok = {
+            "sets": all(got) and int(out["n_sets"]) == len(sets),
+            "vote": bool(np.array_equal(out["votes"], vote.votes) and np.array_equal(out["counts"], vote.counts)
+                         and np.array_equal(out["log_likelihood"], vote.log_likelihood)),
+            "knn": bool(np.array_equal(out["knn_dist"], kd) and np.array_equal(out["knn_idx"], ki)),
+            "solve": bool(float(out["scale"]) == solve[0] and np.array_equal(out["trans"], solve[2])),
+            "ownership errors": all(e.startswith("volume 0: expected exactly one owning process")
+                                    for e in out["errors"].tolist()),
+        }
+        checks.append(ok)
+        print(f"phase13 two processes (gloo) on {base.device}, rank {r} of 2, volumes {out['mine'].tolist()} of 4: "
+              f"extraction {float(out['extract_ms'])!r} ms (its share, after a warm-up); "
+              f"exchange {float(out['exchange_ms'])!r} ms for {int(out['exchange_bytes'])} B of [rows, 84] f32 "
+              f"tables ({sum(len(s) for s in sets)} rows); equal to the single-process results {json.dumps(ok)}")
+    if not all(all(ok.values()) for ok in checks):
+        raise AssertionError(f"the two-process run differs from the single-process results: {checks}")
 
 
 # profiler names of the kernels whose wrapper is named otherwise
@@ -1793,7 +2041,7 @@ def main() -> int:
     from sift3d_torch.core.config import DEFAULT_CONFIG as cfg
     from sift3d_torch.core.device import resolve_device
     from sift3d_torch.io import keyfile, nifti
-    from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels import cuda_lib, gauss_cuda, hist_cuda, patch_cuda
     from sift3d_torch.pipeline import features
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import (
@@ -1826,14 +2074,7 @@ def main() -> int:
     kernels += compare_batched(vol, cfg)
     kernels += compare_matching(extract_features(vol, cfg, device=dev), cfg, dev)
 
-    wrappers = {
-        "blur3d": gauss_cuda.blur3d,
-        "dogs_extrema": extrema_cuda.dogs_extrema,
-        "gather_eig": features.gather_eig,
-        "hist_topk": hist_cuda.hist_topk,
-        "rotated_goh": patch_cuda.rotated_goh,
-        "goh": patch_cuda.goh,
-    }
+    wrappers = extraction_wrappers()
     extract_features(vol, cfg, device=dev)  # warm-up (cuBLAS handles, caches)
     timer = StageTimer(enabled=True)
     for w in wrappers.values():
@@ -1974,14 +2215,24 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]
-    with tempfile.TemporaryDirectory() as tmp:
-        launches.update(featmatch_full_width(vol, cfg, dev, tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        featmatch_card_vs_cpu(tmp)
-    # the batched rows' launches are phase 12's at B = 4
-    batched = batched_runs(vol, cfg)
-    launches.update(dogs_extrema_batch=batched["dogs_extrema"], gather_eig_union=batched["gather_eig"],
-                    rotated_goh_union=batched["rotated_goh"])
+    with tempfile.TemporaryDirectory() as keys_dir:  # phase 10's .key files, read again by phase 13
+        match_launches, key_names, snapshot = featmatch_full_width(vol, cfg, dev, keys_dir)
+        launches.update(match_launches)
+        with tempfile.TemporaryDirectory() as tmp:
+            featmatch_card_vs_cpu(tmp)
+        # the batched rows' launches are phase 12's at B = 4
+        batched, walls_of, many = batched_runs(vol, cfg)
+        launches.update(dogs_extrema_batch=batched["dogs_extrema"], gather_eig_union=batched["gather_eig"],
+                        rotated_goh_union=batched["rotated_goh"])
+        # phase 13: the multi-card layer (dist/) placed over entries of the card
+        placement_runs(vol, cfg, walls_of, many)
+        sharded_knn_run(feats, cfg, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            shard_match_run(keys_dir, key_names, snapshot, dev, tmp)
+        sharded_solve_run(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            multiprocess_run(vol, cfg, many, tmp)
+        del many, snapshot
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

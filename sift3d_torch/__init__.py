@@ -10,12 +10,18 @@ laid out like it:
 - :mod:`sift3d_torch.pipeline`  pyramid, feature stage, extraction
 - :mod:`sift3d_torch.match`     kNN, ratio test, Hough vote, similarity
                                 fit, group soft vote, transforms
+- :mod:`sift3d_torch.dist`      Z-sharded extraction, placement over many
+                                volumes, the sharded kNN and solve, several
+                                processes
 - :mod:`sift3d_torch.cli`       the featextract and featmatch command lines
 - ``csrc/``                     CUDA C++ sources (sm_90a), built on first use
 
 It never imports ``jax`` or ``sift3d``. The extraction entry points are
-exported here: ``extract_features`` (one volume) and
-``extract_features_many`` (a list of volumes, same-shape ones batched).
+exported here: ``extract_features`` (one volume),
+``extract_features_many`` (a list of volumes, same-shape ones batched)
+and ``extract_features_batch`` (a list of volumes placed over a mesh of
+devices, ``sift3d_torch.dist.batch``).
 """
 
+from sift3d_torch.dist.batch import extract_features_batch  # noqa: F401
 from sift3d_torch.pipeline.extract import extract_features, extract_features_many  # noqa: F401

@@ -18,8 +18,9 @@ Usage (mirrors featMatchMultiple/featMatchMultiple.cpp:398-486):
                      in addition to pairwise registration
       --refine  : refit each pairwise transform by weighted least squares
                   over its Hough inliers
-      --shard-match : not ported yet (the sharded group-vote kNN); exits
-                      with an error
+      --shard-match : shard the group-vote kNN's queries over every CUDA
+                      card (``dist.gather.sharded_knn``); the output files
+                      are the same bytes as without it
 
 Outputs (same files, same bytes as ``sift3d.cli.featmatch``):
 _command.txt, _names.txt, feature_count.txt, per-pair .matches.img1/img2/
@@ -36,6 +37,7 @@ import torch
 
 from sift3d_torch.core.config import DEFAULT_CONFIG
 from sift3d_torch.core.device import resolve_device
+from sift3d_torch.dist.mesh import make_mesh
 from sift3d_torch.io import keyfile
 from sift3d_torch.match import groupvote
 from sift3d_torch.match.pairwise import match_keys, ratio_match_stacked
@@ -102,13 +104,15 @@ def match_all_to_one(names, feature_sets, out_report="report.txt", cfg=DEFAULT_C
     return 0
 
 
-def main(argv=None, device=None, timer=None) -> int:
+def main(argv=None, device=None, timer=None, mesh=None) -> int:
     """Run the CLI. device: where to match; None means cuda:<N> from -d<N>
     (cuda:0 without it), and raises when there is no CUDA card. Passing a
     device (such as "cpu", the kernels' plain versions) is for callers that
     hold the port against another implementation. timer: an optional
     StageTimer for the stages read, ratio_match, hough, write (the
-    per-pair output files) and group_vote."""
+    per-pair output files) and group_vote. mesh: the devices --shard-match
+    shards over; None means every CUDA card (with device="cpu": the CPU
+    alone)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if len(argv) < 2:
         print(__doc__)
@@ -125,6 +129,7 @@ def main(argv=None, device=None, timer=None) -> int:
     all_to_all = False
     refine = False
     geometry_weight = -1.0
+    shard_match = False
     index = 0
     i = 0
     while i < len(argv) and argv[i].startswith("-"):
@@ -147,11 +152,9 @@ def main(argv=None, device=None, timer=None) -> int:
         elif a == "--all-to-all":
             all_to_all = True
         elif a == "--shard-match":
-            print(
-                "Error: --shard-match (the group-vote kNN sharded over several cards) is not "
-                "ported yet; run without it, or use the JAX package's CLI (python -m sift3d.cli.featmatch)"
-            )
-            return -1
+            # shard the group-vote kNN over the cards: the mesh analogue of
+            # the reference's OpenMP image chunks (featMatchMultiple.cpp:9,108-117)
+            shard_match = True
         elif a == "--refine":
             refine = True
         elif a in ("-g", "-G"):
@@ -165,6 +168,14 @@ def main(argv=None, device=None, timer=None) -> int:
             print(f"Error: unknown command line argument: {a}")
             return -1
         i += 1
+
+    if shard_match and not all_to_all:
+        # sharding applies to the group-vote kNN sweep only; say so
+        # instead of silently running the pairwise path unsharded
+        print(
+            "Warning: --shard-match only affects --all-to-all group "
+            "matching; pairwise matching runs unsharded."
+        )
 
     if device is None:
         if not torch.cuda.is_available():
@@ -224,13 +235,22 @@ def main(argv=None, device=None, timer=None) -> int:
         # empty per-match debug log, created when the search structure is
         # built in the reference (featMatchUtilities.cpp:1561)
         groupvote.touch_report_all()
+        if shard_match and mesh is None:
+            mesh = make_mesh() if dev.type == "cuda" else [dev]
+
+        def group_vote(feature_sets):
+            # sharded: the kNN over the mesh, the vote on mesh[0]
+            if shard_match:
+                return groupvote.GroupMatcher(feature_sets, labels, geometry_weight, cfg, mesh=mesh)
+            return groupvote.GroupMatcher(feature_sets, labels, geometry_weight, cfg, dev)
+
         with timer.stage("group_vote"):
-            res = groupvote.GroupMatcher(sets, labels, geometry_weight, cfg, dev).match_all_to_all()
+            res = group_vote(sets).match_all_to_all()
         groupvote.write_vote_files(res, tag=feat_type)
         if peaks_mode == 2:
             for tag, ss in (("Valley", split_sets[0]), ("Peaks", split_sets[1])):
                 with timer.stage("group_vote"):
-                    res = groupvote.GroupMatcher(ss, labels, geometry_weight, cfg, dev).match_all_to_all()
+                    res = group_vote(ss).match_all_to_all()
                 groupvote.write_vote_files(res, tag=tag, append=True)
     return 0
 

@@ -1,0 +1,82 @@
+"""Extraction over many volumes by placement: each mesh entry extracts a
+round-robin group of the volumes, whole, on its own device.
+
+The port's counterpart of ``sift3d.dist.batch``. A volume's pipeline
+(dense pyramid, candidates, the ragged feature stage, descriptors) never
+leaves the device that holds it, so no byte moves between devices: volumes
+are independent, as in the reference, which runs one volume per GPU
+(featExtract.cpp:315-328). One host thread per entry keeps each entry's
+queue full and overlaps the groups' host work (the candidate counts, the
+row split, the FeatureSets); inside an entry, same-shape volumes run as one
+batch (``extract_features_many``). The JAX package's ``streams`` and
+``reoriented`` options are not ported (``extract_features_many`` has
+neither).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+from typing import List, Optional, Sequence
+
+import torch
+
+from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
+from sift3d_torch.core.featureset import FeatureSet
+from sift3d_torch.dist.mesh import make_mesh
+from sift3d_torch.pipeline import pyramid
+from sift3d_torch.pipeline.extract import extract_features_many
+
+
+def initial_blur_batch(vols: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG, initial_image_scale: float = 1.0):
+    """The initial blur of a [B, Z, Y, X] batch (one K7 launch on the card)."""
+    return pyramid.initial_blur_core(vols, cfg, initial_image_scale)
+
+
+def octave_step_batch(bases: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG):
+    """One octave of a [B, Z, Y, X] batch of bases: (gstack [B, 6, Z, Y, X],
+    dogs [B, 5, ...], mask [B, 3, ...] int8, next_base [B, Z/2, Y/2, X/2]),
+    the program ``extract_features_many`` runs per shape group."""
+    return pyramid.octave_core(bases, cfg)
+
+
+def on_device(dev: torch.device):
+    """A context that makes dev the calling thread's current CUDA device (the
+    kernels' C entries select it too); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def extract_features_batch(
+    vols: Sequence, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG,
+    initial_image_scale: float = 1.0, descriptor: str = "goh",
+) -> List[FeatureSet]:
+    """Extract features from [Z, Y, X] volumes (numpy arrays or tensors)
+    over a mesh; returns one FeatureSet per volume, in input order, each
+    equal bit for bit to ``extract_features`` on that volume alone.
+
+    mesh: an ordered list of devices (``dist.mesh.make_mesh``), which may
+    repeat one; None means every CUDA device, and raises without one. The
+    volumes are dealt round-robin over the first min(len(mesh), len(vols))
+    entries; each entry runs ``extract_features_many`` on its group in a
+    host thread of its own. An entry's error is raised here.
+    initial_image_scale and descriptor as in ``extract_features``."""
+    mesh = make_mesh(devices=mesh)
+    if not len(vols):
+        return []
+    n = min(len(mesh), len(vols))
+
+    def run(dev: torch.device, ids: List[int]) -> List[FeatureSet]:
+        with on_device(dev):
+            return extract_features_many(
+                [vols[i] for i in ids], cfg, device=dev,
+                initial_image_scale=initial_image_scale, descriptor=descriptor,
+            )
+
+    groups = [list(range(e, len(vols), n)) for e in range(n)]
+    out: List[Optional[FeatureSet]] = [None] * len(vols)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=n) as ex:
+        jobs = [ex.submit(run, mesh[e], ids) for e, ids in enumerate(groups)]
+        for ids, job in zip(groups, jobs):
+            for i, f in zip(ids, job.result()):
+                out[i] = f
+    return out

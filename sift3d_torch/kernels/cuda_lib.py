@@ -7,7 +7,11 @@ happens at the first CUDA call, never at import (the CPU tests import
 every module, and the CPU has no ``nvcc``),
 into ``sift3d_torch/_build/<hash>/``, keyed on a hash of the sources and
 flags: a fresh checkout builds everything on first use, a changed source
-rebuilds, and an unchanged one loads the existing library.
+rebuilds, and an unchanged one loads the existing library. Loading is
+safe from several host threads at once (``dist.batch`` runs one per mesh
+entry): one lock serializes :func:`library`, and every build writes its
+objects into a temporary directory of its own before the library is
+renamed into place.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises on anything but 0.
@@ -25,6 +29,8 @@ import os
 import pathlib
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 
 import torch
@@ -110,40 +116,54 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tag = f"{os.getpid()}.tmp"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, procs = [], []
-    for src in (s for s in sources() if s.suffix == ".cu"):
-        obj = out.with_name(f"{src.stem}.{tag}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], []
-    for cmd, proc in procs:
-        text, _ = proc.communicate()
-        log.append(f"$ {' '.join(cmd)}\n{text}")
-        if proc.returncode != 0:
-            failed.append(text)
-    tmp = out.with_name(f"{LIB_NAME}.{tag}")
-    if not failed:
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        log.append(f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}")
-        if r.returncode != 0:
-            failed.append(r.stderr)
-    log.append(f"seconds: {time.perf_counter() - t0:.1f}\n")
-    (out.parent / "nvcc.log").write_text("\n".join(log))
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(text[-4000:] for text in failed))
-    os.replace(tmp, out)
+    # objects and the unlinked library in a directory of this call's own, so
+    # that builds in other processes or threads never touch them
+    work = pathlib.Path(tempfile.mkdtemp(prefix="build.", dir=out.parent))
+    try:
+        objs, procs = [], []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for cmd, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"$ {' '.join(cmd)}\n{text}")
+            if proc.returncode != 0:
+                failed.append(text)
+        tmp = work / LIB_NAME
+        if not failed:
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
+            r = subprocess.run(cmd, capture_output=True, text=True)
+            log.append(f"$ {' '.join(cmd)}\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
+                failed.append(r.stderr)
+        log.append(f"seconds: {time.perf_counter() - t0:.1f}\n")
+        (out.parent / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(text[-4000:] for text in failed))
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use; callable from any
+    thread (the first caller builds, the others wait for it)."""
+    with _LIBRARY_LOCK:
+        return _load()
+
+
+@functools.cache
+def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -160,6 +180,14 @@ def launch(name: str, *args, device: torch.device) -> None:
     err = getattr(library(), name)(*conv, device.index, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count a run reads to show that
+    it went through the kernel. Under a lock: wrappers run from several host
+    threads at once (``dist.batch``), and ``+= 1`` is a read and a write."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

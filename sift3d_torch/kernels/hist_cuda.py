@@ -88,7 +88,8 @@ def peak_rows(hist: torch.Tensor, pk: torch.Tensor, k: int) -> torch.Tensor:
     """K3's [C, k, 16] rows from a histogram and its peak plane: the k
     largest peaks, the lowest flat index first on ties."""
     c = hist.shape[0]
-    vals, idx = torch.sort(pk.reshape(c, -1), dim=1, descending=True, stable=True)
+    # the width spelled out: -1 is ambiguous for C = 0 (no live primary in an octave)
+    vals, idx = torch.sort(pk.reshape(c, PATCH_DIM**3), dim=1, descending=True, stable=True)
     vals, idx = vals[:, :k], idx[:, :k]
     valid = vals > -torch.inf
     one = torch.ones_like(idx)
@@ -96,7 +97,7 @@ def peak_rows(hist: torch.Tensor, pk: torch.Tensor, k: int) -> torch.Tensor:
     y = torch.where(valid, (idx // PATCH_DIM) % PATCH_DIM, one)
     x = torch.where(valid, idx % PATCH_DIM, one)
     b = (z * PATCH_DIM + y) * PATCH_DIM + x
-    hflat = hist.reshape(c, -1)
+    hflat = hist.reshape(c, PATCH_DIM**3)
     out = torch.zeros((c, k, LANES), dtype=torch.float32, device=hist.device)
     out[..., 0] = vals
     for lane, off in enumerate((-1, 1, -PATCH_DIM, PATCH_DIM, -PATCH_DIM**2, PATCH_DIM**2), 1):
@@ -136,7 +137,7 @@ def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     cuda_lib.launch(
         "sift3d_hist_topk", cx, cy, cz, w, band, out, c, v_total, k, device=cx.device
     )
-    hist_topk.launches += 1
+    cuda_lib.count_launch(hist_topk)
     return out
 
 
@@ -169,7 +170,7 @@ def splat_histogram_raw_bins(cx, cy, cz, w) -> torch.Tensor:
     if c == 0:
         return hist
     cuda_lib.launch("sift3d_splat_histogram_raw", cx, cy, cz, w, band, hist, c, v_total, device=cx.device)
-    splat_histogram_raw_bins.launches += 1
+    cuda_lib.count_launch(splat_histogram_raw_bins)
     return hist
 
 
@@ -187,7 +188,7 @@ def smooth_histogram_peaks_bins(cx, cy, cz, w, band):
     cuda_lib.launch(
         "sift3d_smooth_histogram_peaks", cx, cy, cz, w, band, hist, pk, c, v_total, device=cx.device
     )
-    smooth_histogram_peaks_bins.launches += 1
+    cuda_lib.count_launch(smooth_histogram_peaks_bins)
     return hist, pk
 
 

@@ -126,7 +126,7 @@ def knn_topk(q: torch.Tensor, db: torch.Tensor, k: int):
     if nq == 0:
         return dist, idx
     cuda_lib.launch("sift3d_knn_topk", q, db, dist, idx, nq, db.shape[0], c, k, device=q.device)
-    knn_topk.launches += 1
+    cuda_lib.count_launch(knn_topk)
     return dist, idx
 
 

@@ -100,7 +100,7 @@ def normalize_patches(patches: torch.Tensor) -> torch.Tensor:
     are :func:`tree_sum`s, so a row comes out the same on every device, in
     any batch, and in the fused kernels (``csrc/common.cuh``)."""
     n = patches.shape[0]
-    flat = patches.reshape(n, -1)
+    flat = patches.flatten(1)  # [n, 1331], also for n = 0
     # a tensor divisor: PyTorch on CUDA multiplies by a scalar's reciprocal
     count = torch.full((n, 1), float(flat.shape[1]), dtype=flat.dtype, device=flat.device)
     centered = flat - tree_sum(flat)[:, None] / count

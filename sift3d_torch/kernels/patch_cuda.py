@@ -156,7 +156,7 @@ def sample_rotated(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) 
         "sift3d_sample_rotated", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
         depth, device=gstack.device,
     )
-    sample_rotated.launches += 1
+    cuda_lib.count_launch(sample_rotated)
     return out
 
 
@@ -190,7 +190,7 @@ def goh(patches) -> torch.Tensor:
     out = _goh_out(patches.shape[0], patches.device)
     if patches.shape[0]:
         cuda_lib.launch("sift3d_goh", patches, out, patches.shape[0], device=patches.device)
-        goh.launches += 1
+        cuda_lib.count_launch(goh)
     return out
 
 
@@ -213,7 +213,7 @@ def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> 
             "sift3d_rotated_goh", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
             depth, device=gstack.device,
         )
-        rotated_goh.launches += 1
+        cuda_lib.count_launch(rotated_goh)
     return out
 
 

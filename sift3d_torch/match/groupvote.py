@@ -44,6 +44,7 @@ from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.core.numerics import numpy_sum, tree_sum
+from sift3d_torch.dist.gather import sharded_knn
 from sift3d_torch.match.knn import knn_search
 
 
@@ -75,7 +76,11 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor, n_seg: int) -> torch.Te
 class GroupMatcher:
     """Concatenated-descriptor database over all images. device: None
     means the card (raises without one); "cpu" runs M1's plain version and
-    the vote on the CPU."""
+    the vote on the CPU. mesh: an ordered list of devices over which
+    :meth:`match_all_to_all` shards the kNN's queries
+    (``dist.gather.sharded_knn``, the JAX package's ``--shard-match``); the
+    vote then runs on ``mesh[0]``, and the result equals the unsharded one
+    bit for bit."""
 
     def __init__(
         self,
@@ -84,9 +89,13 @@ class GroupMatcher:
         geometry_weight: float = -1.0,
         cfg: SiftConfig = DEFAULT_CONFIG,
         device=None,
+        mesh: Optional[Sequence] = None,
     ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh[0] if mesh is not None else device)
+        if mesh is not None and device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"with a mesh the vote runs on mesh[0] ({self.device}), not on {device}")
         self.n_img = len(feature_sets)
         self.labels = np.asarray(
             labels if labels is not None else np.arange(self.n_img), dtype=np.int64
@@ -120,7 +129,10 @@ class GroupMatcher:
         self.total_prior_denom = float(len(self.feat_img) + self.n_labels)
 
     def knn(self, k: int):
-        """(dist, idx) of every database row's k nearest rows, on the device."""
+        """(dist, idx) of every database row's k nearest rows, on the device
+        (with a mesh: the queries sharded over it)."""
+        if self.mesh is not None:
+            return sharded_knn(self.db, self.db, k, self.mesh)
         return knn_search(self.db, self.db, k, self.device)
 
     def _vote_all(self, dist: torch.Tensor, idx: torch.Tensor, q_img: torch.Tensor):
@@ -283,7 +295,8 @@ class GroupMatcher:
         return GroupVoteResult(votes=votes[None], counts=counts[None], log_likelihood=ll[None])
 
     def match_all_to_all(self) -> GroupVoteResult:
-        """All images vs the database: one kNN launch (M1), then the vote."""
+        """All images vs the database: one kNN launch (M1; with a mesh, one
+        per entry), then the vote."""
         k = min(self.cfg.knn_neighbors, len(self.feat_img))
         if k == 0 or not len(self.db):
             z = np.zeros((self.n_img, self.n_labels))

@@ -149,7 +149,7 @@ def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds):
         return scores
     cuda_lib.launch("sift3d_hough_scores", rots, scales, pts0, pts1, s0, s1, o0, o1, scores, m,
                     *thresholds, device=pts0.device)
-    hough_scores.launches += 1
+    cuda_lib.count_launch(hough_scores)
     return scores
 
 

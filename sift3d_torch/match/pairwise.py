@@ -115,7 +115,7 @@ def ratio_rows(q, db, xyz, scale, log_thr: float, shift: float):
     if nq == 0:
         return idx, ratio
     cuda_lib.launch("sift3d_ratio_match", q, db, xyz, scale, idx, ratio, nq, nd, log_thr, shift, device=q.device)
-    ratio_rows.launches += 1
+    cuda_lib.count_launch(ratio_rows)
     return idx, ratio
 
 

@@ -4,9 +4,9 @@ The reference estimates each pairwise transform from a single Hough-winning
 hypothesis (featMatchUtilities.cpp:816-1025); the JAX package adds a
 weighted least-squares similarity fit (Umeyama/Procrustes) over the Hough
 inliers, from second-order moments (``sift3d.dist.solve.solve_similarity``;
-its sharded variant, ``solve_similarity_sharded``, comes with the port's
-multi-card work). Here the moments are f64 sums of the f32 points on the
-device, in ``numerics.tree_sum``'s order, the same on every device, and
+its sharded form, ``sift3d_torch.dist.solve.solve_similarity_sharded``,
+gives the same bits). Here the moments are f64 sums of the f32 points on
+the device, in ``numerics.tree_sum``'s order, the same on every device, and
 the 3 x 3 solve runs in f64 on the host, so the card and the CPU give the
 same transform. The JAX package computes all of it in f32: its moments
 cancel (E[q p^T] - qbar pbar^T over points about 5 voxels apart, some 40
@@ -26,13 +26,14 @@ from sift3d_torch.core.numerics import tree_sum
 
 def moments(p: torch.Tensor, q: torch.Tensor, w: torch.Tensor):
     """Weighted moments (sw, sp [3], sq [3], spp, spq [3, 3] = sum w q p^T)
-    of [N, 3] f64 points p, q and [N] f64 weights w, each a tree_sum over N."""
-    wp = w[:, None] * p
+    of [..., N, 3] f64 points p, q and [..., N] f64 weights w, each a
+    tree_sum over N (leading dims: a batch of point sets, one sum each)."""
+    wp = w[..., None] * p
     sw = tree_sum(w)
-    sp = tree_sum(wp.T)
-    sq = tree_sum((w[:, None] * q).T)
-    spp = tree_sum(w * ((p[:, 0] * p[:, 0] + p[:, 1] * p[:, 1]) + p[:, 2] * p[:, 2]))
-    spq = tree_sum((q[:, :, None] * wp[:, None, :]).permute(1, 2, 0))
+    sp = tree_sum(wp.transpose(-1, -2))
+    sq = tree_sum((w[..., None] * q).transpose(-1, -2))
+    spp = tree_sum(w * ((p[..., 0] * p[..., 0] + p[..., 1] * p[..., 1]) + p[..., 2] * p[..., 2]))
+    spq = tree_sum((q[..., :, :, None] * wp[..., :, None, :]).movedim(-3, -1))
     return sw, sp, sq, spp, spq
 
 
@@ -53,12 +54,19 @@ def solve_from_moments(sw, sp, sq, spp, spq):
     return scale, rot, trans
 
 
-def solve_similarity(p, q, device=None):
-    """Similarity fit p -> q of [N, 3] points (numpy arrays or tensors), every
-    point weighted 1: (scale, rot [3, 3], trans [3]) in f64. device: None
-    means the card (raises without one)."""
-    dev = resolve_device(device, like=p)
+def as_points(p, q, w, dev: torch.device):
+    """p, q [N, 3] and w [N] (numpy arrays or tensors; w None: every weight
+    1) as f64 tensors on dev, each value first rounded to f32."""
     p = torch.as_tensor(p, dtype=torch.float32, device=dev).double()
     q = torch.as_tensor(q, dtype=torch.float32, device=dev).double()
-    w = torch.ones(p.shape[0], dtype=torch.float64, device=dev)
+    if w is None:
+        return p, q, torch.ones(p.shape[0], dtype=torch.float64, device=dev)
+    return p, q, torch.as_tensor(w, dtype=torch.float32, device=dev).double()
+
+
+def solve_similarity(p, q, w=None, device=None):
+    """Weighted similarity fit p -> q of [N, 3] points with [N] weights
+    (numpy arrays or tensors; w None: every weight 1): (scale, rot [3, 3],
+    trans [3]) in f64. device: None means the card (raises without one)."""
+    p, q, w = as_points(p, q, w, resolve_device(device, like=p))
     return solve_from_moments(*(m.cpu().numpy() for m in moments(p, q, w)))

@@ -223,7 +223,7 @@ def gather_eig(gstack, dogs, lvl, zyx, sigmas: Sequence[float], cfg: SiftConfig,
             in_bounds, keep, float(cfg.eig_threshold), r, b, nl, zg, nd, zd, yd, xd, gz0, int(dz0),
             depth, device=dev,
         )
-        gather_eig.launches += 1
+        cuda_lib.count_launch(gather_eig)
     return xyz, scale, in_bounds, pn, eigs, ori, keep
 
 

@@ -12,6 +12,13 @@ the same fit (about 1.5e-4 voxel here); the port's equal that replay, so
 the transforms are compared there: scale and rotation within 1e-5 of the
 JAX CLI's, translations within 1e-9 of the replay and no farther from the
 JAX CLI's than the JAX CLI is from the replay.
+
+--shard-match (the group vote's kNN sharded over main(..., mesh=["cpu"] *
+8)): every output file the same bytes as the same call without the flag,
+and as the JAX CLI's --shard-match on its 8 simulated devices, except with
+-g, where the JAX CLI's sharded votes leave its own unsharded ones (a
+witness test; the port's equal the unsharded JAX CLI's). Without
+--all-to-all both CLIs print the same warning.
 """
 
 import contextlib
@@ -139,17 +146,91 @@ def test_refine_transforms(keys, tmp_path, monkeypatch):
         np.testing.assert_allclose(got.trans, want.trans, atol=5e-4)
 
 
-def test_shard_match_is_refused(keys, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
+SHARD_FLAG_SETS = {
+    "all-to-all": ["--all-to-all"],
+    "s2 all-to-all": ["-s2", "--all-to-all"],
+    "n3": ["-n", "3", "--all-to-all"],
+    "g0.5 all-to-all": ["-g", "0.5", "--all-to-all"],
+}
+SHARD_MESH = ["cpu"] * 8  # the JAX tests' 8 simulated devices
+
+
+def _run(run, argv, keys, d, monkeypatch):
+    """run(argv) in directory d on copies of the keys; returns its stdout."""
+    d.mkdir()
+    for name in NAMES:
+        shutil.copy(keys / name, d / name)
+    monkeypatch.chdir(d)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = tx_cli.main(["--all-to-all", "--shard-match", *(str(keys / n) for n in NAMES)], device="cpu")
-    assert rc == -1 and "not ported" in out.getvalue()
-    assert not (tmp_path / "report.txt").exists()
+        assert run(argv) == 0
+    return out.getvalue()
+
+
+def _differ(a, b):
+    files = _outputs(a)
+    assert files == _outputs(b)
+    return [f for f in files if f != "_command.txt" and (a / f).read_bytes() != (b / f).read_bytes()]
+
+
+@pytest.mark.parametrize("flags", sorted(SHARD_FLAG_SETS))
+def test_shard_match_equals_unsharded(flags, keys, tmp_path, monkeypatch):
+    """--shard-match over 8 CPU entries: every output file the same bytes
+    as the same call without it (_command.txt records the flag)."""
+    argv = SHARD_FLAG_SETS[flags] + list(NAMES)
+    plain = tmp_path / "plain"
+    _run(lambda a: tx_cli.main(a, device="cpu"), argv, keys, plain, monkeypatch)
+    sharded = tmp_path / "sharded"
+    _run(lambda a: tx_cli.main(a, device="cpu", mesh=SHARD_MESH), ["--shard-match", *argv], keys, sharded,
+         monkeypatch)
+    assert {"matching_votes.txt", "vote_count.txt"} <= set(_outputs(sharded))
+    assert _differ(plain, sharded) == []
+
+
+@pytest.mark.parametrize("flags", ["all-to-all", "s2 all-to-all", "n3"])
+def test_shard_match_byte_identical_to_jax(flags, keys, tmp_path, monkeypatch):
+    argv = ["--shard-match", *SHARD_FLAG_SETS[flags], *NAMES]
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    _run(jx_cli.main, argv, keys, jax_dir, monkeypatch)
+    _run(lambda a: tx_cli.main(a, device="cpu", mesh=SHARD_MESH), argv, keys, port_dir, monkeypatch)
+    assert _differ(jax_dir, port_dir) == []
+    assert (jax_dir / "_command.txt").read_bytes() == (port_dir / "_command.txt").read_bytes()
+
+
+def test_jax_shard_match_moves_the_g_votes(keys, tmp_path, monkeypatch):
+    """Witness (ROADMAP Queue 3): with -g the JAX CLI's --shard-match votes
+    differ from its own unsharded votes. Its sharded kNN computes the
+    67-column distances in another order than its knn_search, so distances
+    of rows whose descriptors tie (their geometry columns alone apart)
+    cancel to other ulps of the norms, and near-tied neighbours swap. The
+    port's --shard-match -g equals the JAX CLI without the flag instead."""
+    argv = ["-g", "0.5", "--all-to-all", *NAMES]
+    dirs = {}
+    for who, run, extra in (("jax", jx_cli.main, []), ("jax_shard", jx_cli.main, ["--shard-match"]),
+                            ("port_shard", lambda a: tx_cli.main(a, device="cpu", mesh=SHARD_MESH),
+                             ["--shard-match"])):
+        dirs[who] = tmp_path / who
+        _run(run, extra + argv, keys, dirs[who], monkeypatch)
+    assert sorted(_differ(dirs["jax"], dirs["jax_shard"])) == ["matching_votes.txt", "vote_count.txt"]
+    assert _differ(dirs["jax"], dirs["port_shard"]) == []
+
+
+def test_shard_match_without_all_to_all_warns(keys, tmp_path, monkeypatch):
+    argv = ["--shard-match", *NAMES]
+    said = _run(lambda a: tx_cli.main(a, device="cpu", mesh=SHARD_MESH), argv, keys, tmp_path / "port",
+                monkeypatch)
+    jax_said = _run(jx_cli.main, argv, keys, tmp_path / "jax", monkeypatch)
+    warning = ("Warning: --shard-match only affects --all-to-all group matching; pairwise matching runs "
+               "unsharded.\n")
+    assert said.startswith(warning) and jax_said.startswith(warning)
+    assert "matching_votes.txt" not in _outputs(tmp_path / "port")
+    assert _differ(tmp_path / "jax", tmp_path / "port") == []
 
 
 def test_entry_points_need_a_card_by_default(keys, tmp_path, monkeypatch):
     """device=None means the card: without one every entry point raises."""
+    from sift3d_torch import extract_features_batch
+    from sift3d_torch.dist import gather, multihost, solve
     from sift3d_torch.match import groupvote, hough, knn, pairwise
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -163,6 +244,14 @@ def test_entry_points_need_a_card_by_default(keys, tmp_path, monkeypatch):
                                                            feats.ori, feats.ori),
         "GroupMatcher": lambda: groupvote.GroupMatcher([feats, feats]),
         "featmatch.main": lambda: tx_cli.main([str(keys / n) for n in NAMES]),
+        "featmatch.main --shard-match": lambda: tx_cli.main(
+            ["--all-to-all", "--shard-match", *(str(keys / n) for n in NAMES)]),
+        "sharded_knn": lambda: gather.sharded_knn(feats.desc, feats.desc, 3),
+        "gather_keypoint_sets": lambda: gather.gather_keypoint_sets([torch.from_numpy(feats.desc)[None]]),
+        "solve_similarity_sharded": lambda: solve.solve_similarity_sharded(feats.xyz, feats.xyz, feats.scale),
+        "extract_features_batch": lambda: extract_features_batch([np.zeros((8, 8, 8), np.float32)]),
+        "global_mesh": multihost.global_mesh,
+        "extract_features_multihost": lambda: multihost.extract_features_multihost([np.zeros((8, 8, 8), np.float32)]),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match="CUDA card"):

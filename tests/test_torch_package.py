@@ -1,7 +1,13 @@
 """PyTorch port: package rules and kernel routing.
 
 - No module under sift3d_torch/ imports jax, jaxlib or sift3d (the card's
-  machine has no JAX; importing sift3d pulls it in).
+  machine has no JAX; importing sift3d pulls it in), nor do chip_smoke.py
+  and scripts/torch_multihost_worker.py.
+- The kernel library loads once when many threads ask for it at once, and
+  the launch counts lose no update under threads (dist.batch runs one host
+  thread per mesh entry).
+- The plain versions take zero rows (an octave whose candidates have no
+  live primary orientation).
 - A CPU tensor takes every kernel wrapper's plain path, and never builds.
 - Every ported kernel has its CUDA source, the matching kernels (M1 kNN,
   M2 ratio test, M3 Hough scores) too.
@@ -10,26 +16,35 @@
   version run on the CPU (cuBLAS on the card sums in another order); the
   batched calls of batched extraction (K1 on [B, 6, Z, Y, X], the fused K2
   with a volume index, the fused K4 and K4's patch mode on the flattened
-  [B * 6, Z, Y, X] stack) equal per-volume calls of the same kernels. This file imports no JAX, so it
+  [B * 6, Z, Y, X] stack) equal per-volume calls of the same kernels, and
+  the sharded kNN and solve over three entries of the card equal the
+  single-device calls. This file imports no JAX, so it
   also runs where JAX is missing: python -m pytest --noconftest -m cuda
   tests/test_torch_package.py
 """
 
 import ast
 import pathlib
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
 from sift3d_torch.core.config import SiftConfig
-from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, knn_cuda, patch_cuda
+from sift3d_torch.dist import gather, solve
+from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, knn_cuda, patch, patch_cuda
 from sift3d_torch.match import hough, pairwise
+from sift3d_torch.match.knn import knn_search
+from sift3d_torch.match.solve import solve_similarity
 from sift3d_torch.pipeline import features
 
 torch.set_num_threads(1)
 
-PACKAGE = pathlib.Path(__file__).resolve().parent.parent / "sift3d_torch"
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PACKAGE = REPO / "sift3d_torch"
 FORBIDDEN = {"jax", "jaxlib", "sift3d"}
 
 
@@ -52,9 +67,12 @@ def test_port_never_imports_jax_or_the_jax_package():
     # the package's own sources; _build/ holds build outputs, not sources
     files = sorted(f for f in PACKAGE.rglob("*.py") if cuda_lib.BUILD_DIR not in f.parents)
     assert len(files) > 10
-    assert {"mesh.py", "halo.py", "spatial.py"} <= {f.name for f in files if f.parent.name == "dist"}
+    assert {"mesh.py", "halo.py", "spatial.py", "batch.py", "gather.py", "solve.py", "multihost.py"} <= {
+        f.name for f in files if f.parent.name == "dist"
+    }
+    files += [REPO / "chip_smoke.py", REPO / "scripts" / "torch_multihost_worker.py"]
     bad = {
-        str(f.relative_to(PACKAGE)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
+        str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files
     }
     assert {k: v for k, v in bad.items() if v} == {}
 
@@ -215,6 +233,67 @@ def test_library_path_is_keyed_on_the_sources():
     assert "sm_90a" in " ".join(cuda_lib.NVCC_FLAGS)
 
 
+def test_library_loads_once_from_many_threads(monkeypatch):
+    """8 threads ask for the library at once, the build slow: one build, one
+    library, and every thread gets it."""
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)
+        return pathlib.Path("libfake.so")
+
+    class FakeLib:
+        def __init__(self, path):
+            self.path = path
+            for name in cuda_lib.SIGNATURES:
+                setattr(self, name, type("Entry", (), {})())
+
+    monkeypatch.setattr(cuda_lib, "build", slow_build)
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL", FakeLib)
+    cuda_lib._load.cache_clear()
+    try:
+        got = []
+        threads = [threading.Thread(target=lambda: got.append(cuda_lib.library())) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+        assert not any(t.is_alive() for t in threads)
+        assert len(builds) == 1 and len(got) == 8 and all(g is got[0] for g in got)
+        assert got[0].path == "libfake.so"
+    finally:
+        cuda_lib._load.cache_clear()
+
+
+def test_launch_counts_lose_no_update_under_threads():
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [cuda_lib.count_launch(wrapper) for _ in range(2000)])
+                   for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert wrapper.launches == 16 * 2000
+
+
+def test_plain_versions_take_zero_rows():
+    band = torch.from_numpy(hist_cuda.hist_band(gauss.gaussian_kernel_1d(0.5, 0.01)))
+    empty = torch.zeros((0, 40))
+    assert hist_cuda.hist_topk(empty, empty, empty, empty, band, 3).shape == (0, 3, 16)
+    assert patch.normalize_patches(torch.zeros((0, 11, 11, 11))).shape == (0, 11, 11, 11)
+    assert patch_cuda.goh(torch.zeros((0, 11, 11, 11))).shape == (0, 64)
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_on_the_card(rng):
     if not torch.cuda.is_available():
@@ -286,3 +365,22 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
             sel = rvi == b
             want = wrapper(batch[b].contiguous(), rlvl[sel].to(torch.int32), *(t[sel] for t in rows))
             assert _equal(got[sel], want)
+
+
+@pytest.mark.cuda
+def test_sharded_knn_and_solve_on_the_card(rng):
+    """Over three entries of cuda:0: M1 once per entry, equal to one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    mesh = ["cuda:0"] * 3
+    q, db, k = _match_inputs(torch.device("cuda:0"))["knn"]
+    want = knn_search(q, db, k)
+    before = knn_cuda.knn_topk.launches
+    got = gather.sharded_knn(q, db, k, mesh)
+    assert knn_cuda.knn_topk.launches == before + 3
+    assert _equal(got, want)
+    p, q = (rng.uniform(-10, 10, (1000, 3)).astype(np.float32) for _ in range(2))
+    w = rng.uniform(0.5, 1.5, 1000).astype(np.float32)
+    want = solve_similarity(p, q, w, device="cuda:0")
+    got = solve.solve_similarity_sharded(p, q, w, mesh)
+    assert got[0] == want[0] and np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
