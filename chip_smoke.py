@@ -6,9 +6,11 @@
 Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
      the seconds the hand-written kernels took to build (nvcc, sm_90a), the
-     registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's and
-     the fused K2's and K4's kernels from the build's nvcc.log, and a
-     warning naming any kernel that spills;
+     registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's, the
+     fused K2's and K4's and M1-M3's kernels from the build's nvcc.log, and
+     a warning naming any kernel that spills; the int8 tensor-core
+     instructions (IMMA) in M1's int8 kernels from cuobjdump -sass, which
+     must hold some;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
@@ -103,7 +105,10 @@ Phases, each printing one line:
      extracted on the card and written as .key files, matched twice: the
      walls, [ms, launches of M1-M3] by stage (read, ratio_match and hough,
      the pairwise path, and group_vote), every pair's translation within 1
-     voxel of its shift and its scale within 5% of 1;
+     voxel of its shift and its scale within 5% of 1; M3 launched twice in
+     the hough stage (the scores and the inlier masks of all 31 pairs), the
+     stage's ms and its device ms from one profiled call; then M1's f32
+     route through its entry point knn_search on float rows;
  11. the featmatch CLI on the card against the CLI on the CPU for every
      flag set of tests/test_torch_featmatch_cli.py and --refine, on its
      40^3 fixtures: every output file byte-identical;
@@ -116,12 +121,17 @@ Phases, each printing one line:
      fused K4 and goh; then a mixed batch (a T1-grid volume, zeros, a -2-
      grid volume) on the card against the same batch on the CPU, exact.
 Phase 2 also holds the matching kernels against their plain versions,
-exactly, with the same times, bounds and yardsticks: M1 (kNN, k = 5) over
-48,000 rows all to all (the extraction's GoH rows tiled, rows from a
-4-letter alphabet, 67-column -g rows; yardstick torch.cdist + torch.topk),
-M2 on 31 stacked query sets against a 969-row database (yardstick
-torch.cdist + the eager closed form), M3 at M = 1500 and 3000 (beside the
-device time and launches of the eager chunked scorer).
+exactly, with the same times, bounds and yardsticks: M1 (kNN, k = 5) on
+its int8 route over 48,000 rows all to all (the extraction's GoH rows
+tiled, rows from a 4-letter alphabet, 67-column -g rows) and on a quarter
+shard of 12,000 queries (the database cut into slices, then merged), and on
+its f32 route on 48,000 float rows (yardstick torch.cdist + torch.topk; the
+route and the launches printed), M2 on 31 stacked query sets against a
+969-row database (yardstick torch.cdist + the eager closed form), M3's
+scores on stacks of 31 pairs of 1000 and of 3000 matches (beside 31
+single-pair launches) and at M = 1500 and 3000, and its inlier masks on the
+31 x 1000 stack's winners (beside the device time and launches of the eager
+chunked scorer and mask).
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
 or without the sift3d_torch package beside it, it exits non-zero before
@@ -220,12 +230,15 @@ def max_abs(a, b) -> float:
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+INT8_OPS = 1979e12  # H100 SXM int8 tensor cores, dense
 
 
-def bound(n_bytes: float, flops: float):
-    """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the memory rate and the f32 FLOPs over the peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(n_bytes: float, flops: float, int8_ops: float = 0.0):
+    """(least ms the card could take, "bytes" or "operations"): the largest
+    of the bytes over the memory rate, the f32 FLOPs over their peak and
+    the int8 tensor-core operations over theirs."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS, int8_ops / INT8_OPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -450,6 +463,26 @@ def nvcc_report(names) -> dict:
             report[entry] = [int(m.group(1)), int(m.group(2)), *spills]
             entry = None
     return report
+
+
+def sass_count(kernel: str, opcode: str) -> dict:
+    """{function: instructions whose opcode starts with `opcode`} in the
+    built library's SASS (cuobjdump -sass) for the functions whose mangled
+    name contains `kernel`."""
+    from sift3d_torch.kernels import cuda_lib
+
+    tool = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(cuda_lib.library_path())], capture_output=True, text=True, check=True)
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?" + opcode, line):
+            counts[fn] += 1
+    return counts
 
 
 EDGE_SIGMAS = (0.5, 0.95, 1.2, 1.6, 2.0, 2.4, 2.8, 3.0897)  # blur radii 1..8
@@ -732,9 +765,11 @@ def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
     events, runtime launch calls, {kernel name: [events, device ms]} in
-    descending ms, {stage: launch calls}), or None when the trace holds no
-    device event. Stages are the profiler ranges "stage:<name>" that
-    StageMarks opens; a launch counts in the stage whose range holds it."""
+    descending ms, {stage: launch calls}, {stage: device ms}), or None when
+    the trace holds no device event. Stages are the profiler ranges
+    "stage:<name>" that StageMarks opens; a launch counts in the stage whose
+    range holds it, and a device event in the stage whose range on the
+    device (the trace's annotation of that range) holds its start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -763,11 +798,35 @@ def device_profile(fn):
             spans.setdefault(e.name[len("stage:"):], []).append((e.time_range.start, e.time_range.end))
     per_stage = {name: sum(1 for t in launches if any(a <= t <= b for a, b in ranges))
                  for name, ranges in spans.items()}
-    return busy, span, len(dev), len(launches), per_name, per_stage
+    marks = {}
+    for e in events:
+        if e.name.startswith("stage:") and e.device_type == torch.autograd.DeviceType.CUDA:
+            marks.setdefault(e.name[len("stage:"):], []).append((e.time_range.start, e.time_range.end))
+    stage_ms = {name: sum(e.time_range.elapsed_us() for e in dev if any(a <= e.time_range.start <= b
+                                                                          for a, b in ranges)) / 1e3
+                for name, ranges in marks.items()}
+    return busy, span, len(dev), len(launches), per_name, per_stage, stage_ms
+
+
+def kernel_device_ms(fn, tag: str, calls: int = 10):
+    """[events, device ms an event] of the kernels whose name holds tag over
+    `calls` calls of fn under torch.profiler (the trace may miss some; None:
+    it holds no device event): a kernel's own time, without its wrapper's
+    host work."""
+    def run():
+        for _ in range(calls):
+            fn()
+
+    prof = device_profile(run)
+    if prof is None:
+        return None
+    hits = [v for name, v in prof[4].items() if tag in name]
+    events = sum(n for n, _ in hits)
+    return [events, sum(ms for _, ms in hits) / max(events, 1)]
 
 
 def record_kernel(results, name, source, replaces, kernel, plain, tol, note, n_bytes, flops, library=None,
-                  chain=None, plain_reps=REPS):
+                  chain=None, plain_reps=REPS, int8_ops=0.0):
     """Phase 2's check of one kernel: kernel() against plain() (each a
     tensor or a tuple of them) within tol, their median ms, the bound, the
     library call's ms and back-to-back times; appends the kernel table's
@@ -777,14 +836,15 @@ def record_kernel(results, name, source, replaces, kernel, plain, tol, note, n_b
     want = want if isinstance(want, tuple) else (want,)
     err = max(max_abs(g.float(), w.float()) for g, w in zip(got, want))
     ms, plain_ms = median_ms(kernel), median_ms(plain, plain_reps)
-    bound_ms, bound_by = bound(n_bytes, flops)
+    bound_ms, bound_by = bound(n_bytes, flops, int8_ops)
     library_ms = None if library is None else median_ms(library)
     burst = [burst_ms(kernel), None if library is None or library_ms > 5 else burst_ms(library)]
     replaced = "" if chain is None else f"; the eager chain it replaces {json.dumps(chain_time(chain))}"
     print(
         f"phase2 {name}: {note}; max_abs_err {err!r} (tolerance {tol!r}); "
         f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
-        f"({n_bytes!r} B, {flops!r} FLOP), library {library_ms!r} ms; back to back [kernel, "
+        f"({n_bytes!r} B, {flops!r} FLOP{f', {int8_ops!r} int8 operations' if int8_ops else ''}), "
+        f"library {library_ms!r} ms; back to back [kernel, "
         f"library] {burst!r} ms a call{replaced}"
     )
     if not err <= tol:
@@ -1396,6 +1456,7 @@ def compare_batched(base, cfg) -> list:
 
 
 MATCH_ROWS = 48_000  # 32 images x 1500 features: MATCHBENCH_r05.json's largest cell (its sizes only)
+HOUGH_PAIRS = 31  # the pairs of one featmatch call on 32 images
 HOUGH_STAGE_OPS = (34, 60, 4)  # ops a pair: the distance test, the orientation test, the scale test
 
 
@@ -1425,12 +1486,43 @@ def tiled_goh_rows(feats):
     return np.tile(feats.desc, (-(-MATCH_ROWS // len(feats)), 1))[:MATCH_ROWS]
 
 
+def stacked_hough_args(sizes, dev):
+    """M3's inputs for a stack of pairs, one of m matches for each m in
+    sizes (similarity_matches, seeds 1, 2, ...): the hypotheses computed on
+    the host over the stack, everything on dev; and the offsets."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.match import hough
+
+    pairs = [similarity_matches(m, seed=i + 1) for i, m in enumerate(sizes)]
+    cat = [np.concatenate([p[f] for p in pairs]) for f in range(6)]
+    rots, hs = hough.hypotheses(*(torch.from_numpy(a) for a in cat[2:]))
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (rots, hs, *cat)]
+    return args, hough.segment_offsets(sizes)
+
+
+def knn_int8_work(nq: int, n: int, c: int, k: int):
+    """(bytes, f32 FLOPs, int8 operations) of M1's int8 route: the rows read
+    once and the results written once; the tensor-core product over 64
+    columns; a distance's sum, product and difference (and the geometry
+    tail's three fmas), and the norms."""
+    return ((nq + n) * c * 4 + nq * k * 12, nq * n * (3 + 2 * (c - 64)) + 2.0 * (nq + n) * c,
+            2.0 * nq * n * 64)
+
+
 def compare_matching(feats, cfg, dev):
     """Phase 2 for the matching kernels, each against its plain version on
-    the same CUDA tensors, exact: M1 (kNN) at MATCH_ROWS rows, k = 5, on the
-    extraction's GoH rows tiled, on rows from a 4-letter alphabet (tie
-    heavy) and on 67-column -g rows; M2 on 31 stacked query sets against
-    one database; M3 at M = 1500 and 3000. Returns the table's rows."""
+    the same CUDA tensors, exact: M1 (kNN, k = 5) on its int8 route at
+    MATCH_ROWS rows all to all, on the extraction's GoH rows tiled, on rows
+    from a 4-letter alphabet (tie heavy) and on 67-column -g rows, then a
+    quarter shard (MATCH_ROWS / 4 queries, the database cut into slices),
+    and on its f32 route on float rows (which its int8 wrapper must
+    refuse); M2 on 31 stacked query sets against
+    one database; M3's scores on stacks of 31 pairs of 1000 and of 3000
+    matches (beside 31 single-pair launches) and on single pairs of M = 1500
+    and 3000, and its inlier masks on the 31 x 1000 stack's winners.
+    Returns the table's rows."""
     import numpy as np
     import torch
 
@@ -1450,20 +1542,47 @@ def compare_matching(feats, cfg, dev):
         "GoH rows tiled": goh,
         "4-letter alphabet": rng.choice(np.float32([0, 1, 2, 3]), (n, 64)),
         "-g 0.5 (67 columns)": np.concatenate([goh, 0.5 * xyz / scale[:, None]], axis=1),
+        "float rows": rng.standard_normal((n, 64)).astype(np.float32) * 20,
     }
     k = cfg.knn_neighbors
     for label, rows in sets.items():
         x = torch.as_tensor(np.ascontiguousarray(rows), dtype=torch.float32, device=dev)
         c = x.shape[1]
-        dist, _ = knn_cuda.knn_topk(x, x, k)
-        ties = float((dist[:, 1:] == dist[:, :-1]).float().mean())
-        record(
-            "knn_topk", "sift3d_torch/csrc/knn_topk.cu", "sift3d/match/knn.py:20",
-            lambda: knn_cuda.knn_topk(x, x, k), lambda: knn_cuda.knn_topk_plain(x, x, k),
-            0.0, f"{label}: all-to-all over {n} rows x {c}, k={k}, {ties:.3f} of neighbour pairs tied (exact)",
-            2 * n * c * 4 + n * k * 12, 2.0 * n * n * c,
-            library=lambda: torch.topk(torch.cdist(x, x), k, dim=1, largest=False), plain_reps=2,
-        )
+        int8 = knn_cuda.int8_route(x, x)
+        if int8 != (label != "float rows"):
+            raise AssertionError(f"M1 on {label} took the {'int8' if int8 else 'f32'} route")
+        if not int8:
+            try:
+                knn_cuda.knn_topk_int8(x, x, k)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"M1's int8 wrapper took {label}")
+        queries = [(x, f"all to all over {n} rows x {c}")]
+        if label == "GoH rows tiled":
+            queries.append((x[: n // 4], f"a quarter shard, {n // 4} queries x {n} rows x {c}"))
+        for q, shape in queries:
+            wrapper = knn_cuda.knn_topk_int8 if int8 else knn_cuda.knn_topk_f32
+            before = wrapper.launches
+            dist, _ = wrapper(q, x, k)
+            torch.cuda.synchronize()
+            launches = wrapper.launches - before
+            slices = knn_cuda.int8_plan(q.shape[0], n, knn_cuda.int8_places(dev, c, k))[0] if int8 else 1
+            if q is not x and slices < 2:
+                raise AssertionError(f"M1 did not cut the database for the quarter shard: {slices} slice")
+            ties = float((dist[:, 1:] == dist[:, :-1]).float().mean())
+            nq = q.shape[0]
+            n_bytes, flops, int8_ops = knn_int8_work(nq, n, c, k) if int8 else (
+                (nq + n) * c * 4 + nq * k * 12, 2.0 * nq * n * c, 0.0)
+            record(
+                "knn_topk_int8" if int8 else "knn_topk_f32", "sift3d_torch/csrc/knn_topk.cu",
+                "sift3d/match/knn.py:20",
+                lambda: wrapper(q, x, k), lambda: knn_cuda.knn_topk_plain(q, x, k),
+                0.0, f"{label}: {shape}, k={k}, route {'int8' if int8 else 'f32'}, {slices} database "
+                f"slice(s), {launches} launches a call, {ties:.3f} of neighbour pairs tied (exact)",
+                n_bytes, flops, int8_ops=int8_ops,
+                library=lambda: torch.topk(torch.cdist(q, x), k, dim=1, largest=False), plain_reps=2,
+            )
         del x, dist
 
     # M2: 31 query sets of about 1000 rows (near-copies of the database's
@@ -1487,25 +1606,64 @@ def compare_matching(feats, cfg, dev):
         library=lambda: pairwise.closed_form(torch.cdist(qt, dbt).square(), xyzt, st, thr, shift),
     )
 
-    # M3 at the pairwise path's largest M (max_matches) and half of it
+    # M3's scores on stacks of 31 pairs (featmatch's one launch a call) and
+    # on single pairs at the pairwise path's largest M (max_matches) and half
+    # of it; the inlier masks on the first stack's winners
     th = tuple(float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien))
-    for m in (1500, cfg.max_matches):
-        p0, p1, s0, s1, o0, o1 = similarity_matches(m, seed=m)
-        rots, hs = hough.hypotheses(*(torch.from_numpy(a) for a in (s0, s1, o0, o1)))
-        args = [put(a).contiguous() for a in (rots, hs, p0, p1, s0, s1, o0, o1)]
+    big = cfg.max_matches
+    for sizes, label in (([1000] * HOUGH_PAIRS, f"{HOUGH_PAIRS} pairs x 1000 matches, stacked"),
+                         ([big] * HOUGH_PAIRS, f"{HOUGH_PAIRS} pairs x {big} matches, stacked"),
+                         ([1500], "one pair, M=1500"), ([big], f"one pair, M={big}")):
+        args, offsets = stacked_hough_args(sizes, dev)
+        m = int(offsets[-1])
         # the pairs each test stage reaches (the kernel skips the later
         # tests of a pair that fails an earlier one)
-        reach = [int(hough.hough_scores_plain(*args, t).sum()) for t in
+        reach = [int(hough.hough_scores_plain(*args, t, offsets).sum()) for t in
                  ((float("inf"), th[1], float("-inf")), (float("inf"), th[1], th[2]))]
-        scores = hough.hough_scores(*args, th)
-        ops = HOUGH_STAGE_OPS[0] * m * m + HOUGH_STAGE_OPS[1] * reach[0] + HOUGH_STAGE_OPS[2] * reach[1]
+        scores = hough.hough_scores(*args, th, offsets)
+        ops = HOUGH_STAGE_OPS[0] * sum(s * s for s in sizes) + HOUGH_STAGE_OPS[1] * reach[0] \
+            + HOUGH_STAGE_OPS[2] * reach[1]
+        blocks = int(hough.segment_blocks(offsets)[-1])
+        extra = ""
+        if len(sizes) > 1:
+            bounds = list(zip(offsets[:-1].tolist(), offsets[1:].tolist()))
+
+            def per_pair():
+                for lo, hi in bounds:
+                    hough.hough_scores(*(a[lo:hi] for a in args), th)
+
+            extra = (f"; {len(sizes)} single-pair launches {median_ms(per_pair)!r} ms "
+                     f"({burst_ms(per_pair, n=5)!r} b2b)")
         record(
             "hough_scores", "sift3d_torch/csrc/hough_scores.cu", "sift3d/match/hough.py:58",
-            lambda: hough.hough_scores(*args, th), lambda: hough.hough_scores_plain(*args, th),
-            0.0, f"M={m} (best score {int(scores.max())}; pairs past the distance test {reach[0]}, "
-            f"past the orientation test {reach[1]}) (exact)",
-            m * (26 + 10) * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th),
+            lambda: hough.hough_scores(*args, th, offsets), lambda: hough.hough_scores_plain(*args, th, offsets),
+            0.0, f"{label}, {blocks} blocks (best score {int(scores.max())}; pairs past the distance test "
+            f"{reach[0]}, past the orientation test {reach[1]}); [events, device ms an event] of the kernel "
+            f"over 10 profiled calls {kernel_device_ms(lambda: hough.hough_scores(*args, th, offsets), 'hough')}"
+            f"{extra} (exact)",
+            m * (26 + 10) * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th, offsets),
+            plain_reps=2,
         )
+        if len(sizes) > 1 and sizes[0] == 1000:
+            s = scores.cpu().numpy()
+            winners = [lo + int(np.argmax(s[lo:hi])) for lo, hi in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
+            mask = hough.hough_inliers(*args, th, offsets, winners)
+            if int(mask.sum()) != int(s[winners].sum()):
+                raise AssertionError("M3's inlier masks disagree with its scores")
+            mreach = [int(hough.hough_inliers_plain(*args, t, offsets, winners).sum()) for t in
+                      ((float("inf"), th[1], float("-inf")), (float("inf"), th[1], th[2]))]
+            record(
+                "hough_inliers", "sift3d_torch/csrc/hough_scores.cu", "sift3d/match/hough.py:95",
+                lambda: hough.hough_inliers(*args, th, offsets, winners),
+                lambda: hough.hough_inliers_plain(*args, th, offsets, winners),
+                0.0, f"the winners' masks, {label}, {int(hough.segment_blocks(offsets, True)[-1])} blocks, "
+                f"{int(mask.sum())} inliers; [events, device ms an event] of the kernel over 10 profiled calls "
+                f"{kernel_device_ms(lambda: hough.hough_inliers(*args, th, offsets, winners), 'hough')} "
+                f"(exact)",
+                m * 26 * 4 + len(sizes) * 10 * 4 + m,
+                HOUGH_STAGE_OPS[0] * m + HOUGH_STAGE_OPS[1] * mreach[0] + HOUGH_STAGE_OPS[2] * mreach[1],
+                chain=lambda: hough.hough_inliers_plain(*args, th, offsets, winners),
+            )
     return table_rows(results)
 
 
@@ -1513,7 +1671,9 @@ def match_wrappers():
     from sift3d_torch.kernels import knn_cuda
     from sift3d_torch.match import hough, pairwise
 
-    return {"knn_topk": knn_cuda.knn_topk, "ratio_match": pairwise.ratio_rows, "hough_scores": hough.hough_scores}
+    return {"knn_topk_int8": knn_cuda.knn_topk_int8, "knn_topk_f32": knn_cuda.knn_topk_f32,
+            "ratio_match": pairwise.ratio_rows, "hough_scores": hough.hough_scores,
+            "hough_inliers": hough.hough_inliers}
 
 
 def launch_timer(wrappers):
@@ -1549,7 +1709,9 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     held (a rotation off by a few degrees moves the translation about the
     origin by several voxels). Returns the second call's launches of M1-M3,
     the .key names (in tmp) and the output files of the --all-to-all call
-    ({name: bytes}, without the .key inputs and _command.txt)."""
+    ({name: bytes}, without the .key inputs and _command.txt). The hough
+    stage must launch M3 twice (the scores and the inlier masks of every
+    pair); one more call runs under torch.profiler for its device time."""
     import numpy as np
     import torch
 
@@ -1600,8 +1762,15 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
             walls.append(wall)
         launches = {k: w.launches for k, w in wrappers.items()}
         votes = np.loadtxt("matching_votes.txt", skiprows=1, max_rows=32)
+        with contextlib.redirect_stdout(io.StringIO()):
+            prof = device_profile(lambda: featmatch.main(["--all-to-all", "--refine", *names], timer=stage_marks(),
+                                                         device=None if dev.type == "cuda" else dev))
     finally:
         os.chdir(here)
+    hough_launches = stages["hough"][1]
+    hough_device = "not measured (no device events)" if prof is None else (
+        f"{prof[6].get('hough')!r} ms of device work (M3 by name "
+        f"{json.dumps({k: v for k, v in prof[4].items() if 'hough' in k})}), the call's device busy {prof[0]!r} ms")
     print(
         f"phase10 featmatch --all-to-all --refine on 32 volumes {FULL_DIMS} on {dev}: extraction + .key write "
         f"{extract_s:.2f} s, .key rows {min(rows)}..{max(rows)} ({sum(rows)} in all); wall_ms {walls!r}; "
@@ -1610,11 +1779,45 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         f"diagonal {float(np.trace(votes))!r}, off-diagonal min {float((votes + np.eye(32) * 1e9).min())!r}; "
         f"without --refine (the winning hypothesis alone): wall_ms {hough_wall!r}, max translation error "
         f"{float(hough_errs[:, 0].max())!r} voxel (median {float(np.median(hough_errs[:, 0]))!r}), "
-        f"max |scale - 1| {float(hough_errs[:, 1].max())!r}"
+        f"max |scale - 1| {float(hough_errs[:, 1].max())!r}; the hough stage (every pair's Hough vote): "
+        f"{stages['hough'][0]!r} ms, M3 launches {hough_launches['hough_scores']} (scores) + "
+        f"{hough_launches['hough_inliers']} (inlier masks), one profiled call: {hough_device}"
     )
-    if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(launches.values()) <= 0:
+    # the f32 route of M1 takes no row a featmatch call makes
+    if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(
+            v for k, v in launches.items() if k != "knn_topk_f32") <= 0 or hough_launches["hough_scores"] != 1 or (
+            hough_launches["hough_inliers"] != 1):
         raise AssertionError(f"featmatch on the card missed a shift or a kernel: {errs.tolist()}, {launches}")
     return launches, names, snapshot
+
+
+def knn_f32_entry(cfg, dev) -> int:
+    """M1's f32 route has no caller in the repo that makes its rows: its
+    path is the entry point match.knn.knn_search on rows that are not
+    int8-range integers (here 4000 rows of seeded normal values times 20),
+    which must take the f32 route, equal to the plain version. Returns its
+    launches."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import knn_cuda
+    from sift3d_torch.match.knn import knn_search
+
+    rows = np.random.default_rng(11).standard_normal((4000, 64)).astype(np.float32) * 20
+    x = torch.as_tensor(rows, device=dev)
+    wrappers = (knn_cuda.knn_topk_f32, knn_cuda.knn_topk_int8)
+    for w in wrappers:
+        w.launches = 0
+    got = knn_search(rows, rows, cfg.knn_neighbors, device=dev)
+    torch.cuda.synchronize()
+    f32, int8 = (w.launches for w in wrappers)
+    want = knn_cuda.knn_topk_plain(x, x, cfg.knn_neighbors)
+    exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    print(f"phase10 knn_search on {rows.shape[0]} float rows (the f32 route's entry point): launches f32 {f32}, "
+          f"int8 {int8}; equal to the plain version {exact}")
+    if f32 != 1 or int8 != 0 or not exact:
+        raise AssertionError("knn_search on float rows did not take M1's f32 route, or disagrees")
+    return f32
 
 
 FEATMATCH_FLAG_SETS = [[], ["--all-to-all"], ["-s0"], ["-s1"], ["-s2", "--all-to-all"], ["-r-"],
@@ -1676,7 +1879,7 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
               f"{same}, byte-identical card = CPU {not differ} {differ}; card launches {json.dumps(launches)}")
         want_knn = "--all-to-all" in flags
         if not same or differ or launches["ratio_match"] <= 0 or launches["hough_scores"] <= 0 or (
-                want_knn and launches["knn_topk"] <= 0):
+                launches["hough_inliers"] <= 0) or (want_knn and launches["knn_topk_int8"] <= 0):
             raise AssertionError(f"featmatch {flags}: the card disagrees with the CPU or ran no kernel")
 
 
@@ -1739,7 +1942,7 @@ def batched_runs(base, cfg):
         if prof is None:
             traced = "device time not measured (no device events)"
         else:
-            busy, _, _, n_launch, _, per_stage = prof
+            busy, _, _, n_launch, _, per_stage, _ = prof
             traced = (f"device busy {busy!r} ms ({busy / nb!r} a volume), {n_launch} launch calls "
                       f"({n_launch / nb!r} a volume; [launch calls, stage calls] by stage "
                       f"{json.dumps({k: [v, marks.counts[k]] for k, v in per_stage.items()})}), idle share "
@@ -1841,9 +2044,10 @@ def placement_runs(base, cfg, walls_of, want) -> dict:
 def sharded_knn_run(feats, cfg, dev) -> int:
     """Phase 13, the sharded kNN: sharded_knn over PLACEMENT_ENTRIES entries
     of the card on phase 2's first M1 input (the GoH rows tiled to
-    MATCH_ROWS), exact against knn_search, M1 launched once per entry; its
-    median ms (CUDA events) beside one launch of M1 on the whole input.
-    Returns the launches of one sharded call."""
+    MATCH_ROWS), exact against knn_search, M1 (its int8 route: the pre-pass,
+    the main kernel and, for a quarter's queries, the slices' merge) once
+    per entry; its median ms (CUDA events) beside one call of M1 on the
+    whole input. Returns the launches of one sharded call."""
     import torch
 
     from sift3d_torch.dist.gather import sharded_knn
@@ -1854,17 +2058,21 @@ def sharded_knn_run(feats, cfg, dev) -> int:
     k = cfg.knn_neighbors
     mesh = [dev] * PLACEMENT_ENTRIES
     want = knn_search(x, x, k, device=dev)
-    knn_cuda.knn_topk.launches = 0
+    chunk = -(-x.shape[0] // len(mesh))
+    slices = knn_cuda.int8_plan(chunk, x.shape[0], knn_cuda.int8_places(dev, x.shape[1], k))[0]
+    per_entry = 2 + (slices > 1)
+    knn_cuda.knn_topk_int8.launches = 0
     got = sharded_knn(x, x, k, mesh)
     torch.cuda.synchronize()
-    launches = knn_cuda.knn_topk.launches
+    launches = knn_cuda.knn_topk_int8.launches
     exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     sharded_ms = median_ms(lambda: sharded_knn(x, x, k, mesh))
     single_ms = median_ms(lambda: knn_cuda.knn_topk(x, x, k))
     print(f"phase13 sharded_knn over {len(mesh)} x {dev}, {x.shape[0]} x {x.shape[1]} rows, k={k}: equal to "
-          f"knn_search {exact}; M1 launches {launches}; {sharded_ms!r} ms (median of {REPS}, CUDA events) "
-          f"beside one M1 launch on all rows {single_ms!r} ms")
-    if not exact or launches != len(mesh):
+          f"knn_search {exact}; M1 launches {launches} ({per_entry} an entry: {chunk} queries cut the database "
+          f"into {slices} slices); {sharded_ms!r} ms (median of {REPS}, CUDA events) beside one M1 call on all "
+          f"rows {single_ms!r} ms")
+    if not exact or launches != len(mesh) * per_entry:
         raise AssertionError(f"sharded_knn differs from knn_search or launched M1 {launches} times")
     return launches
 
@@ -1904,7 +2112,7 @@ def shard_match_run(keys_dir: str, names, snapshot, dev, tmp: str) -> None:
               f"rc {rc}; {len(files)} output files, byte-identical to phase 10's --all-to-all "
               f"{not differ and not missing} (differ {differ}, missing {missing}); group_vote "
               f"{timer.milliseconds().get('group_vote')!r} ms, [stage ms, launches] {json.dumps(stages)}")
-        if rc != 0 or differ or missing or timer.launches["group_vote"]["knn_topk"] <= 0:
+        if rc != 0 or differ or missing or timer.launches["group_vote"]["knn_topk_int8"] <= 0:
             raise AssertionError(f"featmatch --shard-match over {label} differs from phase 10's files")
 
 
@@ -2060,10 +2268,16 @@ def main() -> int:
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
                               "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel",
-                              "knn_topk", "ratio_match", "hough_scores"))
+                              "knn_", "ratio_match", "hough_kernel"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
           f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
-          f"<0> on given patches), M1 (knn_topk_kernel<C, KM>), M2 and M3: {json.dumps(redesigned)}")
+          f"<0> on given patches), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
+          f"knn_merge_kernel<KM>; its f32 route: knn_topk_kernel<C, KM>), M2 and M3 (hough_kernel, both "
+          f"modes): {json.dumps(redesigned)}")
+    imma = sass_count("knn_topk_i8_kernel", "IMMA")
+    print(f"phase1 cuobjdump -sass: int8 tensor-core instructions (IMMA) in M1's int8 kernels {json.dumps(imma)}")
+    if not imma or min(imma.values()) <= 0:
+        raise AssertionError(f"M1's int8 kernels hold no IMMA instruction: {imma}")
     spills = sorted(k for k, v in nvcc_report(("",)).items() if v[2] or v[3])
     if spills:
         print(f"phase1 warning: kernels that spill registers: {spills}")
@@ -2139,7 +2353,7 @@ def main() -> int:
     if prof is None:
         print(f"phase4 wall_ms {walls!r} (median {wall!r}); device time not measured (no device events)")
     else:
-        busy, span, n_dev, n_launch, per_name, per_stage = prof
+        busy, span, n_dev, n_launch, per_name, per_stage, _ = prof
         ours = {}
         for name in wrappers:
             # K7 launches blur_xy_kernel and blur_col_kernel, or blur3d_small_kernel
@@ -2218,6 +2432,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as keys_dir:  # phase 10's .key files, read again by phase 13
         match_launches, key_names, snapshot = featmatch_full_width(vol, cfg, dev, keys_dir)
         launches.update(match_launches)
+        launches["knn_topk_f32"] = knn_f32_entry(cfg, dev)
         with tempfile.TemporaryDirectory() as tmp:
             featmatch_card_vs_cpu(tmp)
         # the batched rows' launches are phase 12's at B = 4

@@ -40,7 +40,7 @@ from sift3d_torch.core.device import resolve_device
 from sift3d_torch.dist.mesh import make_mesh
 from sift3d_torch.io import keyfile
 from sift3d_torch.match import groupvote
-from sift3d_torch.match.pairwise import match_keys, ratio_match_stacked
+from sift3d_torch.match.pairwise import match_keys_stacked, ratio_match_stacked
 from sift3d_torch.utils.textfile import read_lines
 from sift3d_torch.utils.timing import StageTimer
 
@@ -50,16 +50,19 @@ def match_all_to_one(names, feature_sets, out_report="report.txt", cfg=DEFAULT_C
     """Pairwise registration of every image to image 0
     (featMatchMultiple.cpp:147-395). Every pair shares image 0 as the
     database, so the ratio tests of all query sets run as ONE launch of M2
-    over the concatenated queries (``pairwise.ratio_match_stacked``)."""
+    over the concatenated queries (``pairwise.ratio_match_stacked``) and the
+    Hough votes of all pairs as one stack, one launch of M3's scores and
+    one of its inlier masks (``pairwise.match_keys_stacked``); then each
+    pair's files are written in order."""
     dev = resolve_device(device)
     timer = timer or StageTimer(enabled=False)
     f1 = feature_sets[0]
     with timer.stage("ratio_match"):
         stacked = ratio_match_stacked(feature_sets[1:], f1, cfg, dev)
-    for i in range(1, len(feature_sets)):
+    with timer.stage("hough"):
+        results = match_keys_stacked(f1, feature_sets[1:], cfg, refine=refine, matches=stacked, device=dev)
+    for i, res in enumerate(results, start=1):
         f2 = feature_sets[i]
-        with timer.stage("hough"):
-            res = match_keys(f1, f2, cfg, refine=refine, matches=stacked[i - 1], device=dev)
         with timer.stage("write"):
             ts = res.transform
 

@@ -76,14 +76,25 @@ SIGNATURES = {
     "sift3d_rotated_goh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # patches [R,11,11,11], out [R,64] u8, R
     "sift3d_goh": (_P, _P, _I),
-    # q [Q,C], db [N,C] f32, out dist [Q,k] f32, idx [Q,k] i64, Q, N, C, k
+    # M1's f32 route: q [Q,C], db [N,C] f32, out dist [Q,k] f32, idx [Q,k] i64, Q, N, C, k
     "sift3d_knn_topk": (_P, _P, _P, _P, _I, _I, _I, _I),
+    # M1's int8 route (knn_cuda.int8_plan): the pre-pass db [N,C] f32 -> db8 [Npad,64] i8,
+    # dn [Npad] f32, tail [Npad,3] f32 (C = 67; null for 64), N, Npad, C; the main kernel q [Q,C],
+    # db8, dn, tail, out dist [Q,k] f32, idx [Q,k] i64, part dist [S,Q,k] f32, part idx [S,Q,k]
+    # i32, Q, N, C, k, S, slice_rows; the slices' merge part dist, part idx, dist, idx, Q, S, k
+    "sift3d_knn_prep_i8": (_P, _P, _P, _P, _I, _I, _I),
+    "sift3d_knn_topk_i8": (_P,) * 8 + (_I,) * 6,
+    "sift3d_knn_merge": (_P, _P, _P, _P, _I, _I, _I),
+    # the int8 main kernel's blocks an SM (occupancy API) for C, k, into an int in host memory
+    "sift3d_knn_i8_blocks_per_sm": (_I, _I, _P),
     # q [Q,64], db [D,64], xyz [D,3], scale [D] f32, out idx [Q] i64, ratio [Q] f32, Q, D,
     # log_thr, shift
     "sift3d_ratio_match": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F),
-    # rots [M,9], hscale [M], p0 [M,3], p1 [M,3], s0 [M], s1 [M], o0 [M,9], o1 [M,9] f32,
-    # scores [M] i32 (zeroed), M, thres_scale, thres_trans, thres_orien
-    "sift3d_hough_scores": (_P,) * 9 + (_I, _F, _F, _F),
+    # mode (0 scores, 1 inliers), rots [M,9], hscale [M], p0 [M,3], p1 [M,3], s0 [M], s1 [M],
+    # o0 [M,9], o1 [M,9] f32, offsets [P+1] i32, block offsets [P+1] i32 (hough.segment_blocks),
+    # winners [P] i32 (the three null for one pair), scores [M] i32 (zeroed), mask [M] u8, P, M,
+    # winner (one pair), blocks, thres_scale, thres_trans, thres_orien
+    "sift3d_hough": (_I,) + (_P,) * 13 + (_I, _I, _I, _I, _F, _F, _F),
 }
 
 

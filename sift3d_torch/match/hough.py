@@ -15,10 +15,14 @@ matches, on the host: they carry the fma contractions XLA's CPU code makes
 in the JAX package (each norm's sum of squares and each dot an fma chain,
 each cross-product term fma(a, b, -(c d)), ``numerics.fma_exact``), so the
 winning rotation and scale, and with them the transform files, are the JAX
-package's bit for bit. The M x M scoring is the kernel M3
-(:func:`hough_scores`, ``csrc/hough_scores.cu``), whose plain version runs
-:func:`hough_ok` over chunks of hypotheses; the winner's inlier mask is
-:func:`hough_ok` on its one row. There every dot product is an explicit
+package's bit for bit. The scoring is the kernel M3
+(``csrc/hough_scores.cu``) over a stack of pairs, each hypothesis against
+the matches of its own pair (segment): :func:`hough_scores`, whose plain
+version runs :func:`hough_ok` over chunks of each segment's hypotheses, then
+the winners' inlier masks, :func:`hough_inliers`, whose plain version is
+:func:`hough_ok` on each winner's row; the featmatch CLI runs every pair of
+a call as one stack (:func:`hough_similarity_stacked`: two launches), and a
+single pair is a stack of one. There every dot product is an explicit
 ((a0 b0 + a1 b1) + a2 b2), every norm the correctly rounded root of such a
 sum, every log computed in f64 and rounded to f32, in the kernel and here
 alike. The JAX package sums a probability per match that its caller sets
@@ -38,6 +42,8 @@ from sift3d_torch.core.device import resolve_device
 from sift3d_torch.kernels import cuda_lib
 
 PLAIN_CHUNK = 1 << 20  # hypothesis-match pairs per chunk of the plain scorer
+HOUGH_THREADS = 128  # hypotheses (scores) or matches (inliers) a block of M3 (hough_scores.cu kThreads)
+HOUGH_CHUNK = 128  # matches a scores block of M3 (kChunk)
 
 
 def _dot3(a, b):
@@ -119,23 +125,59 @@ def hough_ok(rot, scale, h0, h1, pts0, pts1, s0, s1, o0, o1, thresholds):
     return ok
 
 
-def hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds):
-    """[M] int32 inlier counts of every hypothesis, in chunks of hypotheses."""
-    m = pts0.shape[0]
-    step = max(1, PLAIN_CHUNK // max(m, 1))
-    out = [
-        hough_ok(rots[h : h + step], scales[h : h + step], pts0[h : h + step], pts1[h : h + step],
-                 pts0, pts1, s0, s1, o0, o1, thresholds).sum(dim=1, dtype=torch.int32)
-        for h in range(0, m, step)
-    ]
+def segment_offsets(sizes) -> np.ndarray:
+    """[P + 1] int64 offsets of P segments of the given sizes, stacked."""
+    return np.concatenate([[0], np.cumsum(np.asarray(sizes, np.int64))]).astype(np.int64)
+
+
+def segment_blocks(offsets, inliers: bool = False) -> np.ndarray:
+    """[P + 1] int32 offsets of each segment's blocks in M3's grid: for the
+    scores ceil(M_p / HOUGH_THREADS) hypothesis tiles by ceil(M_p /
+    HOUGH_CHUNK) match chunks, for the inlier masks ceil(M_p /
+    HOUGH_THREADS) match tiles; an empty segment has none."""
+    m = np.diff(np.asarray(offsets, np.int64))
+    tiles = -(-m // HOUGH_THREADS)
+    per = tiles if inliers else tiles * -(-m // HOUGH_CHUNK)
+    return np.concatenate([[0], np.cumsum(per)]).astype(np.int32)
+
+
+def _segments(offsets, m: int):
+    offsets = [0, m] if offsets is None else [int(o) for o in offsets]
+    return list(zip(offsets[:-1], offsets[1:]))
+
+
+def hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
+    """[M] int32 inlier counts of every hypothesis against the matches of
+    its own segment (offsets [P + 1]; None: one segment), in chunks of
+    hypotheses."""
+    out = []
+    for lo, hi in _segments(offsets, pts0.shape[0]):
+        seg = slice(lo, hi)
+        args = (pts0[seg], pts1[seg], s0[seg], s1[seg], o0[seg], o1[seg])
+        step = max(1, PLAIN_CHUNK // max(hi - lo, 1))
+        out += [
+            hough_ok(rots[h : min(h + step, hi)], scales[h : min(h + step, hi)], pts0[h : min(h + step, hi)],
+                     pts1[h : min(h + step, hi)], *args, thresholds).sum(dim=1, dtype=torch.int32)
+            for h in range(lo, hi, step)
+        ]
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.int32, device=pts0.device)
 
 
-def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds):
-    """M3 (see hough_scores_plain): the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
-    if cuda_lib.route(pts0) == "plain":
-        return hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds)
+def hough_inliers_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
+    """[M] bool: each segment's matches that are inliers of its winning
+    hypothesis (winners [P], rows of the stack): hough_ok on the winner's
+    row."""
+    out = [
+        hough_ok(rots[w][None], scales[w][None], pts0[w][None], pts1[w][None], pts0[lo:hi], pts1[lo:hi],
+                 s0[lo:hi], s1[lo:hi], o0[lo:hi], o1[lo:hi], thresholds)[0]
+        for (lo, hi), w in zip(_segments(offsets, pts0.shape[0]), [int(w) for w in winners])
+    ]
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool, device=pts0.device)
+
+
+def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, scores, mask):
+    """One launch of M3 in `mode` over the stack's segments; False when
+    every segment is empty (no block to launch)."""
     m = pts0.shape[0]
     for name, t, shape in (
         ("rots", rots, (m, 3, 3)), ("scales", scales, (m,)), ("pts0", pts0, (m, 3)), ("pts1", pts1, (m, 3)),
@@ -144,44 +186,96 @@ def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds):
         cuda_lib.require_cuda(t, name, torch.float32, len(shape))
         if tuple(t.shape) != shape or t.device != pts0.device:
             raise ValueError(f"{name} must be {shape} on {pts0.device}, got {tuple(t.shape)} on {t.device}")
-    scores = torch.zeros(m, dtype=torch.int32, device=pts0.device)
-    if m == 0:
+    offsets = np.asarray([0, m] if offsets is None else offsets, np.int64)
+    if offsets[0] != 0 or offsets[-1] != m or (np.diff(offsets) < 0).any():
+        raise ValueError(f"offsets must ascend from 0 to {m}, got {offsets.tolist()}")
+    blocks = segment_blocks(offsets, inliers=mode == 1)
+    if blocks[-1] == 0:
+        return False
+    p = len(offsets) - 1
+    tables = (None, None, None)  # one pair: its count and winner are arguments
+    if p > 1:
+        # offsets, block offsets and winners in one copy; from pageable memory
+        # a non-blocking copy is staged at once, without waiting on the card
+        meta = np.concatenate([offsets, blocks, [] if winners is None else winners]).astype(np.int32)
+        meta = torch.from_numpy(meta).to(pts0.device, non_blocking=True)
+        tables = (meta, meta[p + 1 :], None if winners is None else meta[2 * p + 2 :])
+    winner = int(winners[0]) if winners is not None and p == 1 else 0
+    cuda_lib.launch("sift3d_hough", mode, rots, scales, pts0, pts1, s0, s1, o0, o1, *tables, scores, mask, p, m,
+                    winner, int(blocks[-1]), *thresholds, device=pts0.device)
+    return True
+
+
+def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
+    """M3's scores (see hough_scores_plain): the plain version for CPU
+    tensors, one launch of the kernel over every segment for CUDA
+    tensors."""
+    if cuda_lib.route(pts0) == "plain":
+        return hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets)
+    scores = torch.zeros(pts0.shape[0], dtype=torch.int32, device=pts0.device)
+    if pts0.shape[0] == 0:
         return scores
-    cuda_lib.launch("sift3d_hough_scores", rots, scales, pts0, pts1, s0, s1, o0, o1, scores, m,
-                    *thresholds, device=pts0.device)
-    cuda_lib.count_launch(hough_scores)
+    if _launch(0, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, None, scores, None):
+        cuda_lib.count_launch(hough_scores)
     return scores
 
 
 hough_scores.launches = 0
 
 
-def hough_similarity(pts0, pts1, s0, s1, o0, o1, cfg: SiftConfig = DEFAULT_CONFIG, device=None):
-    """Returns dict(hypothesis, rot [3,3] f64, scale, inliers [M] bool,
-    score) for M >= 1 matches given as numpy arrays or tensors. device:
-    None means the card (raises without one); "cpu" runs M3's plain
-    version."""
-    dev = resolve_device(device, like=pts0)
+def hough_inliers(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
+    """M3's inlier masks (see hough_inliers_plain): the plain version for
+    CPU tensors, one launch of the kernel's second mode for CUDA tensors."""
+    if cuda_lib.route(pts0) == "plain":
+        return hough_inliers_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners)
+    mask = torch.zeros(pts0.shape[0], dtype=torch.bool, device=pts0.device)
+    if pts0.shape[0] == 0:
+        return mask
+    if _launch(1, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, None, mask):
+        cuda_lib.count_launch(hough_inliers)
+    return mask
 
-    def put(a):
-        return torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
 
-    # the hypotheses on the host (a few hundred small ops over M rows), the
-    # same for every device
-    rots, scales = (put(t) for t in hypotheses(*(torch.as_tensor(a, dtype=torch.float32, device="cpu") for a in (s0, s1, o0, o1))))
-    pts0, pts1, s0, s1, o0, o1 = (put(a) for a in (pts0, pts1, s0, s1, o0, o1))
+hough_inliers.launches = 0
+
+
+def hough_similarity_stacked(pairs, cfg: SiftConfig = DEFAULT_CONFIG, device=None):
+    """hough_similarity of every pair of a list, each (pts0, pts1, s0, s1,
+    o0, o1) of M_p >= 1 matches as numpy arrays or tensors: the hypotheses
+    once on the host over the stacked matches (elementwise, so the same
+    bits as alone), ONE launch of M3's scores over every pair, each pair's
+    first maximum from one copy to the host, ONE launch of its inlier masks.
+    Returns a hough_similarity dict per pair. device: None means the card
+    (raises without one); "cpu" runs M3's plain versions."""
+    if not pairs:
+        return []
+    dev = resolve_device(device, like=pairs[0][0])
+    shapes = ((3,), (3,), (), (), (3, 3), (3, 3))
+    host = [torch.cat([torch.as_tensor(p[f], dtype=torch.float32, device="cpu").reshape(-1, *shape) for p in pairs])
+            for f, shape in enumerate(shapes)]
+    # the hypotheses on the host (a few hundred small ops over the M rows),
+    # the same for every device
+    rots, scales = hypotheses(*host[2:])
+    pts0, pts1, s0, s1, o0, o1 = (t.to(dev).contiguous() for t in host)
     thresholds = tuple(
         float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien)
     )
-    scores = hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds)
-    best = int(np.argmax(scores.cpu().numpy()))  # the first maximum
-    rot, scale = rots[best], scales[best]
-    inliers = hough_ok(rot[None], scale[None], pts0[best][None], pts1[best][None],
-                       pts0, pts1, s0, s1, o0, o1, thresholds)[0]
-    return dict(
-        hypothesis=best,
-        rot=rot.cpu().numpy().astype(np.float64),
-        scale=float(scale),
-        inliers=inliers.cpu().numpy(),
-        score=float(scores[best]),
-    )
+    offsets = segment_offsets([len(p[0]) for p in pairs])
+    args = (rots.to(dev).contiguous(), scales.to(dev).contiguous(), pts0, pts1, s0, s1, o0, o1, thresholds, offsets)
+    scores = hough_scores(*args).cpu().numpy()
+    bounds = list(zip(offsets[:-1].tolist(), offsets[1:].tolist()))
+    winners = [lo + int(np.argmax(scores[lo:hi])) for lo, hi in bounds]  # the first maxima
+    inliers = hough_inliers(*args, winners).cpu().numpy()
+    return [
+        dict(hypothesis=w - lo, rot=rots[w].numpy().astype(np.float64), scale=float(scales[w]),
+             inliers=inliers[lo:hi], score=float(scores[w]))
+        for (lo, hi), w in zip(bounds, winners)
+    ]
+
+
+def hough_similarity(pts0, pts1, s0, s1, o0, o1, cfg: SiftConfig = DEFAULT_CONFIG, device=None):
+    """Returns dict(hypothesis, rot [3,3] f64, scale, inliers [M] bool,
+    score) for M >= 1 matches given as numpy arrays or tensors: the stack of
+    one pair (hough_similarity_stacked). device: None means the card
+    (raises without one); "cpu" runs M3's plain versions."""
+    return hough_similarity_stacked([(pts0, pts1, s0, s1, o0, o1)], cfg, device)[0]

@@ -7,7 +7,8 @@ replaced them with exact brute force on the MXU (``sift3d.match.knn``:
 shape buckets for XLA). The port streams the database through the kernel
 M1 (``kernels.knn_cuda.knn_topk``) instead: no [Q, N] matrix, no tiles, no
 buckets, and the same answer: the k smallest squared L2 distances,
-ascending, the lowest index first among equal ones.
+ascending, the lowest index first among equal ones. Integer descriptor rows
+go through its int8 tensor-core route, any others through f32 fma chains.
 """
 
 from __future__ import annotations

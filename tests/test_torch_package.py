@@ -10,7 +10,7 @@
   live primary orientation).
 - A CPU tensor takes every kernel wrapper's plain path, and never builds.
 - Every ported kernel has its CUDA source, the matching kernels (M1 kNN,
-  M2 ratio test, M3 Hough scores) too.
+  M2 ratio test, M3 Hough scores and inlier masks) too.
 - On a CUDA card (marker `cuda`, skipped without one), every kernel equals
   its plain version on the same tensors; the blur (K7) equals its plain
   version run on the CPU (cuBLAS on the card sums in another order); the
@@ -156,19 +156,29 @@ def _match_inputs(device):
     return dict(
         knn=(*put(q, db), 5),
         knn67=(*put(np.concatenate([q, geo[:25]], 1), np.concatenate([db, geo], 1)), 9),
+        knn_f32=(*put(q * 0.37, db * 0.37), 5),
         ratio=(*put(q, db, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
         hough=(*put(rots, hs, p0, p1, s0, s1, o0, o1), (1.0, 2.0, float(np.float32(0.7)))),
     )
+
+
+# launches a call of the wrappers that launch more than one kernel: M1's
+# int8 route runs its pre-pass and its main kernel (one slice at these sizes)
+LAUNCHES = {"knn_topk": 2, "knn_topk_geometry": 2}
 
 
 def _calls(gs, lvl, centers, scales, oris, hist, band):
     cfg = SiftConfig()
     m = _match_inputs(gs.device)
     return {
-        "knn_topk": (knn_cuda.knn_topk, knn_cuda.knn_topk_plain, m["knn"]),
-        "knn_topk_geometry": (knn_cuda.knn_topk, knn_cuda.knn_topk_plain, m["knn67"]),
+        "knn_topk": (knn_cuda.knn_topk_int8, knn_cuda.knn_topk_plain, m["knn"]),
+        "knn_topk_geometry": (knn_cuda.knn_topk_int8, knn_cuda.knn_topk_plain, m["knn67"]),
+        "knn_topk_f32": (knn_cuda.knn_topk_f32, knn_cuda.knn_topk_plain, m["knn_f32"]),
         "ratio_rows": (pairwise.ratio_rows, pairwise.ratio_rows_plain, m["ratio"]),
         "hough_scores": (hough.hough_scores, hough.hough_scores_plain, m["hough"]),
+        "hough_scores_stacked": (hough.hough_scores, hough.hough_scores_plain, (*m["hough"], [0, 15, 15, 40])),
+        "hough_inliers": (hough.hough_inliers, hough.hough_inliers_plain, (*m["hough"], [0, 15, 40], [3, 20])),
+        "hough_inliers_one_pair": (hough.hough_inliers, hough.hough_inliers_plain, (*m["hough"], None, [7])),
         "gather_eig": (
             features.gather_eig, features.gather_eig_plain,
             (gs, *_candidates(gs), tuple(cfg.level_sigmas()), cfg),
@@ -312,7 +322,7 @@ def test_kernels_match_plain_on_the_card(rng):
         else:
             want = plain(*args)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + 1
+        assert wrapper.launches == before + LAUNCHES.get(name, 1), name
         assert _equal(got, want), name
 
 
@@ -369,15 +379,16 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
 
 @pytest.mark.cuda
 def test_sharded_knn_and_solve_on_the_card(rng):
-    """Over three entries of cuda:0: M1 once per entry, equal to one launch."""
+    """Over three entries of cuda:0: M1 once per entry (its int8 route: the
+    pre-pass and the main kernel), equal to one call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     mesh = ["cuda:0"] * 3
     q, db, k = _match_inputs(torch.device("cuda:0"))["knn"]
     want = knn_search(q, db, k)
-    before = knn_cuda.knn_topk.launches
+    before = knn_cuda.knn_topk_int8.launches
     got = gather.sharded_knn(q, db, k, mesh)
-    assert knn_cuda.knn_topk.launches == before + 3
+    assert knn_cuda.knn_topk_int8.launches == before + 3 * LAUNCHES["knn_topk"]
     assert _equal(got, want)
     p, q = (rng.uniform(-10, 10, (1000, 3)).astype(np.float32) for _ in range(2))
     w = rng.uniform(0.5, 1.5, 1000).astype(np.float32)
