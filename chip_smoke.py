@@ -5,7 +5,8 @@
 
 Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
-     the seconds the hand-written kernels took to build (nvcc, sm_90a), the
+     the seconds the hand-written kernels took to build (nvcc, sm_90a) and
+     the native .key I/O library (g++, io/native.py), the
      registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's, the
      fused K2's and K4's and M1-M3's kernels from the build's nvcc.log, and
      a warning naming any kernel that spills; the int8 tensor-core
@@ -107,8 +108,14 @@ Phases, each printing one line:
      the pairwise path, and group_vote), every pair's translation within 1
      voxel of its shift and its scale within 5% of 1; M3 launched twice in
      the hough stage (the scores and the inlier masks of all 31 pairs), the
-     stage's ms and its device ms from one profiled call; then M1's f32
-     route through its entry point knn_search on float rows;
+     stage's ms and its device ms from one profiled call; the 32 .key files
+     written through the native writer (io/native.py, g++) and through its
+     plain Python version, byte-identical, with each route's ms a file; one
+     more call with the plain .key reader and writer and the plain match
+     files: its read and write stage ms beside the native call's, the
+     .update.key (write_key) and match-file (write_matches) ms a pair of
+     both, and its output files byte-identical to the native call's; then
+     M1's f32 route through its entry point knn_search on float rows;
  11. the featmatch CLI on the card against the CLI on the CPU for every
      flag set of tests/test_torch_featmatch_cli.py and --refine, on its
      40^3 fixtures: every output file byte-identical;
@@ -1721,12 +1728,20 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     from sift3d_torch.pipeline.extract import extract_features
 
     vols, shifts = shifted_volumes(base)
-    names, rows = [], []
+    names, rows, key_ms = [], [], {"native": [], "plain": []}
     t0 = time.perf_counter()
     for i, vol in enumerate(vols):
         feats = extract_features(vol, cfg, device=dev)
         names.append(f"img{i:02d}.key")
-        rows.append(keyfile.write_text(feats, os.path.join(tmp, names[-1]), eig_threshold=cfg.eig_threshold))
+        for route, path in (("native", os.path.join(tmp, names[-1])), ("plain", os.path.join(tmp, "plain.key.txt"))):
+            t1 = time.perf_counter()
+            rows.append(keyfile.write_text(feats, path, eig_threshold=cfg.eig_threshold,
+                                           use_native=route == "native"))
+            key_ms[route].append((time.perf_counter() - t1) * 1e3)
+        if not same_bytes(os.path.join(tmp, names[-1]), os.path.join(tmp, "plain.key.txt")):
+            raise AssertionError(f"{names[-1]}: the native and the plain .key writer differ")
+    os.remove(os.path.join(tmp, "plain.key.txt"))
+    rows = rows[::2]
     extract_s = time.perf_counter() - t0
     wrappers = match_wrappers()
     here = os.getcwd()
@@ -1753,14 +1768,28 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         stages = {k: [round(v, 3), timer.launches[k]] for k, v in timer.milliseconds().items()}
         return wall, stages, np.asarray(errs, np.float64)
 
+    def outputs():
+        return {f: open(f, "rb").read() for f in os.listdir(".") if f not in names and f != "_command.txt"}
+
     try:
         hough_wall, _, hough_errs = run(["--all-to-all"])
-        snapshot = {f: open(f, "rb").read() for f in os.listdir(".") if f not in names and f != "_command.txt"}
+        snapshot = outputs()
         walls = []
         for _ in range(2):
             wall, stages, errs = run(["--all-to-all", "--refine"])
             walls.append(wall)
         launches = {k: w.launches for k, w in wrappers.items()}
+        native_files = outputs()
+        # one more call with the plain .key reader and writer and match files
+        native_io = (keyfile.read_text, keyfile.write_text, featmatch.write_match_file)
+        keyfile.read_text = functools.partial(native_io[0], use_native=False)
+        keyfile.write_text = functools.partial(native_io[1], use_native=False)
+        featmatch.write_match_file = functools.partial(native_io[2], use_native=False)
+        try:
+            plain_wall, plain_stages, _ = run(["--all-to-all", "--refine"])
+        finally:
+            keyfile.read_text, keyfile.write_text, featmatch.write_match_file = native_io
+        plain_same = outputs() == native_files
         votes = np.loadtxt("matching_votes.txt", skiprows=1, max_rows=32)
         with contextlib.redirect_stdout(io.StringIO()):
             prof = device_profile(lambda: featmatch.main(["--all-to-all", "--refine", *names], timer=stage_marks(),
@@ -1768,6 +1797,19 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     finally:
         os.chdir(here)
     hough_launches = stages["hough"][1]
+    pairs = len(names) - 1
+    io_line = {
+        route: {"wall": w, "read": st["read"][0], "write": st["write"][0],
+                "write_key a pair": round(st["write_key"][0] / pairs, 3),
+                "write_matches a pair": round(st["write_matches"][0] / pairs, 3),
+                "key file write ms (median of 32)": round(statistics.median(key_ms[route]), 3)}
+        for route, w, st in (("native", walls[-1], stages), ("plain", plain_wall, plain_stages))
+    }
+    print(f"phase10 .key I/O on {dev}: the 32 .key files byte-identical through the native and the plain writer; "
+          f"--all-to-all --refine with each route (ms): {json.dumps(io_line)}; the plain call's output files "
+          f"byte-identical to the native call's: {plain_same}")
+    if not plain_same:
+        raise AssertionError("featmatch's output files differ between the native and the plain .key I/O")
     hough_device = "not measured (no device events)" if prof is None else (
         f"{prof[6].get('hough')!r} ms of device work (M3 by name "
         f"{json.dumps({k: v for k, v in prof[4].items() if 'hough' in k})}), the call's device busy {prof[0]!r} ms")
@@ -2248,7 +2290,7 @@ def main() -> int:
     from sift3d_torch.cli import featextract
     from sift3d_torch.core.config import DEFAULT_CONFIG as cfg
     from sift3d_torch.core.device import resolve_device
-    from sift3d_torch.io import keyfile, nifti
+    from sift3d_torch.io import keyfile, native, nifti
     from sift3d_torch.kernels import cuda_lib, gauss_cuda, hist_cuda, patch_cuda
     from sift3d_torch.pipeline import features
     from sift3d_torch.pipeline.extract import extract_features
@@ -2262,9 +2304,14 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_lib.library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load()
+    native_s = time.perf_counter() - t0
     print(
         f"phase1 card {card}; torch {torch.__version__}; cuda {torch.version.cuda}; "
-        f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name})"
+        f"kernel build {build_s:.1f} s ({cuda_lib.library_path().parent.name}); native .key I/O "
+        f"(csrc/key_text.cpp): g++ build {native.build_seconds()!r} s, loaded in {native_s:.3f} s "
+        f"({native.library_path().parent.name})"
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
                               "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel",

@@ -11,7 +11,8 @@ Usage:
       -2+  : double input image size       -2- : halve input image size
       -b   : BRIEF descriptor   -br : RRIEF   -bn : NRRIEF
       -d<N>: CUDA device index (default 0); the port runs on the card,
-             through its hand-written kernels, and needs one
+             through its hand-written kernels, and needs one. Any other
+             -d... (-d, -dx) means the default card
       --debug-pgm : write the mid XY slice of the input (image.pgm) and of
              each octave's first blur level (image_o<N>.pgm) to the
              current directory
@@ -74,8 +75,10 @@ def main(argv=None, device=None) -> int:
         a = argv[i]
         if a.startswith("-2"):
             double_image = -1 if a[2:3] == "-" else 1
-        elif a.startswith("-d") and a[2:].isdigit():
-            index = int(a[2:])
+        elif a.startswith("-d"):
+            # -d<N> picks cuda:N; any other -d... means the default card, as
+            # the JAX CLI accepts and ignores every -d...
+            index = int(a[2:]) if a[2:].isdigit() else 0
         elif a in ("-w", "-W"):
             world_coords, isotropic = 1, True
         elif a in ("-ws", "-WS", "-wS", "-Ws"):

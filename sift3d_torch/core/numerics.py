@@ -12,21 +12,6 @@ from __future__ import annotations
 import torch
 
 
-def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 multiply-add a * b + c, almost always equal to the f32 fma.
-
-    PyTorch has no fma op, and whether its CPU or CUDA kernels fuse a
-    multiply into an add is up to their compilers; the compiled JAX package
-    contracts many multiply-adds into fmas. Here the product is exact in
-    f64, but the sum is rounded twice, to f64 and then to f32. Where the
-    exact sum fits in 53 bits (the exponents of a * b and c lie close) that
-    is the fma's single rounding; otherwise it differs from the fma only
-    when the f64 sum lands exactly halfway between two f32 values, about
-    one sum in 2^28. Both devices compute it alike, so the card and the CPU
-    agree either way."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """The correctly rounded f32 fma a * b + c, on every device: a CUDA
     kernel's fmaf, and the multiply-add XLA's CPU code contracts.
@@ -34,8 +19,10 @@ def fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor
     The product is exact in f64. The f64 sum is made round-to-odd (an
     inexact sum with an even last bit moves to its neighbour toward the
     exact value, which TwoSum gives exactly), and rounding a round-to-odd
-    f64 value to f32 rounds the exact value once (53 >= 24 + 2 bits), where
-    :func:`fma`'s plain f64 sum is off at f32 midpoints."""
+    f64 value to f32 rounds the exact value once (53 >= 24 + 2 bits). The
+    plain f64 sum rounded to f32 would round twice, and miss the fma where
+    that sum lands on a midpoint between two f32 values. Every operation is
+    IEEE f64, so the card and the CPU compute the same bits."""
     p = a.double() * b.double()
     c = c.double()
     s = p + c
@@ -63,8 +50,8 @@ def acos(x: torch.Tensor) -> torch.Tensor:
     PyTorch's f32 arccos has one polynomial on the CPU and another on the
     card. Their f64 results lie within an ulp of f64 of the true value, so
     both round to the same f32 unless the true value lies that close to a
-    midpoint between two f32 values, about once in 2^28 (as for
-    :func:`fma`). The CUDA kernels compute ``(float)acos((double)x)``."""
+    midpoint between two f32 values, about once in 2^28. The CUDA kernels
+    compute ``(float)acos((double)x)``."""
     return torch.acos(x.double()).float()
 
 

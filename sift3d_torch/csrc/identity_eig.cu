@@ -8,8 +8,9 @@
 // features.eig_stage (normalize_patches, patch_gradients, the sphere-masked
 // structure tensor, sym_eigs_3x3 and the keep rule). Per row, in that order:
 //   1. the three axis quadratics and the scale quadratic x2 on the row's DoG
-//      level, with quadratic_interp_1d's f64 multiply-add chain, the +0.5
-//      shift and the bounds test;
+//      level, with quadratic_interp_1d's chain of fused multiply-adds (fmaf,
+//      numerics.fma_exact in the plain version), the +0.5 shift and the
+//      bounds test;
 //   2. the 11^3 identity patch (patch_cuda.sample_identity_plain's
 //      arithmetic, common.cuh's identity_tap and trilinear_zyx) into shared
 //      memory;
@@ -43,18 +44,15 @@ namespace {
 
 using namespace sift3d;
 
-// core/numerics.fma: the f64 sum of the exact product, rounded to f32.
-__device__ __forceinline__ float fma64(float a, float b, float c) {
-  return (float)((double)a * (double)b + (double)c);
-}
-
-// kernels/extrema.py _det3: det [[p1 p2 p3], [q1 q2 q3], [1 1 1]].
+// kernels/extrema.py _det3: det [[p1 p2 p3], [q1 q2 q3], [1 1 1]]. An
+// explicit fmaf fuses under -fmad=false and rounds once, as
+// numerics.fma_exact does.
 __device__ __forceinline__ float det3(float p1, float p2, float p3, float q1, float q2, float q3) {
-  float t = fma64(p1, q2, -(p1 * q3));
-  t = fma64(-p2, q1, t);
-  t = fma64(p3, q1, t);
-  t = fma64(p2, q3, t);
-  return fma64(-p3, q2, t);
+  float t = fmaf(p1, q2, -(p1 * q3));
+  t = fmaf(-p2, q1, t);
+  t = fmaf(p3, q1, t);
+  t = fmaf(p2, q3, t);
+  return fmaf(-p3, q2, t);
 }
 
 // kernels/extrema.py quadratic_interp_1d.

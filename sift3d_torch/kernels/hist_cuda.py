@@ -38,7 +38,7 @@ import functools
 import numpy as np
 import torch
 
-from sift3d_torch.core.numerics import fma
+from sift3d_torch.core.numerics import fma_exact
 from sift3d_torch.kernels import cuda_lib
 from sift3d_torch.kernels.gauss import band_from_taps
 from sift3d_torch.kernels.gauss_cuda import blur3d
@@ -69,12 +69,49 @@ def splat_blur_plain(cx, cy, cz, w, band) -> torch.Tensor:
     fx, fy = factors(cx), factors(cy)
     fz = w[..., None] * factors(cz)
     hist = torch.zeros((c, PATCH_DIM, PATCH_DIM, PATCH_DIM), dtype=torch.float32, device=cx.device)
+    # Along each axis a point's factors are exact zeros outside the
+    # W = 2 + 2 * reach bins from (its lower bin - reach), reach the band's
+    # half-width. A multiply-add of a zero product leaves a sum (never -0)
+    # as it is, so each point updates only its W^3 box, with the bits of
+    # the whole (the kernel's warps skip zero products alike). A non-finite
+    # weight turns zero factors into NaN products: then every bin takes
+    # every point.
+    nz = torch.nonzero(band)
+    reach = int((nz[:, 0] - nz[:, 1]).abs().max()) if len(nz) else 0
+    width = 2 + 2 * reach
+    if width >= PATCH_DIM or not bool(torch.isfinite(w).all()):
+        return _splat_full(fx, fy, fz, hist)
+    span, n = torch.arange(width, device=cx.device), width**3
+
+    def window(u, f):
+        """[C, V, W] bins of each point's box along one axis, and the
+        factors there."""
+        lo = torch.clamp(interp_bin(u, PATCH_DIM)[0] - reach, 0, PATCH_DIM - width)
+        idx = lo[..., None] + span
+        return idx, torch.gather(f, 2, idx)
+
+    (ix, wx), (iy, wy), (iz, wz) = window(cx, fx), window(cy, fy), window(cz, fz)
+    flat = hist.reshape(c, PATCH_DIM**3)
     # fused multiply-adds over each CHUNK points in order, chunk sums added
     for v0 in range(0, v_total, CHUNK):
-        part = torch.zeros_like(hist)
+        part = torch.zeros_like(flat)
         for v in range(v0, min(v0 + CHUNK, v_total)):
+            box = ((iz[:, v, :, None, None] * PATCH_DIM + iy[:, v, None, :, None]) * PATCH_DIM
+                   + ix[:, v, None, None, :]).reshape(c, n)
+            inplane = (wy[:, v, :, None] * wx[:, v, None, :])[:, None].expand(c, width, width, width)
+            fzv = wz[:, v, :, None, None].expand(c, width, width, width)
+            part.scatter_(1, box, fma_exact(fzv.reshape(c, n), inplane.reshape(c, n), torch.gather(part, 1, box)))
+        flat = flat + part
+    return flat.reshape(hist.shape)
+
+
+def _splat_full(fx, fy, fz, hist):
+    """splat_blur_plain over every bin for every point."""
+    for v0 in range(0, fx.shape[1], CHUNK):
+        part = torch.zeros_like(hist)
+        for v in range(v0, min(v0 + CHUNK, fx.shape[1])):
             inplane = fy[:, v, None, :, None] * fx[:, v, None, None, :]
-            part = fma(fz[:, v, :, None, None].expand_as(part), inplane.expand_as(part), part)
+            part = fma_exact(fz[:, v, :, None, None].expand_as(part), inplane.expand_as(part), part)
         hist = hist + part
     return hist
 

@@ -44,7 +44,7 @@ import torch
 
 from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.core.featureset import INFO_FLAG_MIN0MAX1, INFO_FLAG_REORIENT
-from sift3d_torch.core.numerics import fma, sqrt
+from sift3d_torch.core.numerics import fma_exact, sqrt
 from sift3d_torch.kernels import cuda_lib
 from sift3d_torch.kernels import descriptor as desc_kernels
 from sift3d_torch.kernels.extrema import quadratic_interp_1d
@@ -238,16 +238,14 @@ gather_eig.launches = 0
 def _fdot3(a, b):
     """a . b over 3 components (sequences of tensors): a chain of fused
     multiply-adds, x first."""
-    return fma(a[2], b[2], fma(a[1], b[1], a[0] * b[0]))
+    return fma_exact(a[2], b[2], fma_exact(a[1], b[1], a[0] * b[0]))
 
 
 def _fcross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a x b over a trailing axis of 3, each a_i b_j - a_j b_i with the
     first product fused."""
-    return torch.stack(
-        [fma(a[..., i], b[..., j], -(a[..., j] * b[..., i])) for i, j in ((1, 2), (2, 0), (0, 1))],
-        dim=-1,
-    )
+    i, j = [1, 2, 0], [2, 0, 1]
+    return fma_exact(a[..., i], b[..., j], -(a[..., j] * b[..., i]))
 
 
 def _norm_or_x(v: torch.Tensor) -> torch.Tensor:
@@ -272,16 +270,10 @@ def hist_tops(hx, hy, hz, w, band, k: int):
     px = flat % 16
     pp = flat // 16
     pz, py = pp // PATCH_DIM, pp % PATCH_DIM
-
-    def quad(vm, vp, coord):
-        cf = coord.to(torch.float32)
-        return quadratic_interp_1d(vm, v, vp, cf - 1.0, cf, cf + 1.0)
-
-    itp = torch.stack(
-        [quad(out[..., 1], out[..., 2], px), quad(out[..., 3], out[..., 4], py),
-         quad(out[..., 5], out[..., 6], pz)],
-        dim=-1,
-    )
+    # the three axes' vertices in one call: lanes 1, 3, 5 hold the values
+    # at x-1, y-1, z-1 and lanes 2, 4, 6 those at x+1, y+1, z+1
+    cf = torch.stack([px, py, pz], dim=-1).to(torch.float32)
+    itp = quadratic_interp_1d(out[..., 1:7:2], v[..., None], out[..., 2:7:2], cf - 1.0, cf, cf + 1.0)
     return v, valid, itp
 
 
@@ -347,7 +339,7 @@ def canonical_stage(pn, cfg: SiftConfig, kvalid=None):
     p1_r = p1[ci, ki]  # [R, 3]
     p1v = p1_r[..., None].expand_as(e3_r)
     par = _fdot3(e3_r.unbind(1), p1v.unbind(1))
-    perp = fma(-par[:, None, :].expand_as(e3_r), p1v, e3_r)
+    perp = fma_exact(-par[:, None, :].expand_as(e3_r), p1v, e3_r)
     pss = _fdot3(perp.unbind(1), perp.unbind(1))[:, None, :]
     ex = torch.zeros_like(perp)
     ex[:, 0] = 1.0
@@ -359,7 +351,7 @@ def canonical_stage(pn, cfg: SiftConfig, kvalid=None):
     p2 = _norm_or_x(itp2 - rad)  # [R, K2, 3]
     p1k = p1_r[:, None, :].expand_as(p2)
     par2 = _fdot3(p2.unbind(-1), p1k.unbind(-1))[..., None]
-    p2 = _norm_or_x(fma(-par2.expand_as(p2), p1k, p2))
+    p2 = _norm_or_x(fma_exact(-par2.expand_as(p2), p1k, p2))
     orir = torch.stack([p1k, p2, _fcross3(p1k, p2)], dim=2)  # [R, K2, 3, 3]
     valid2 = torch.zeros((c * k1, k2), dtype=torch.bool, device=dev)
     valid2[sidx] = valid2r

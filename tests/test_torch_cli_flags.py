@@ -171,3 +171,17 @@ def test_subsample_order_witness(shape):
     c = vol.reshape(z, 2, y, 2, x, 2).transpose(1, 3, 5, 0, 2, 4).reshape(8, z, y, x)
     tree = ((((c[0] + c[1]) + (c[2] + c[3])) + c[4]) + c[5]) + (c[6] + c[7])
     np.testing.assert_array_equal(tree / np.float32(8), want)
+
+
+@pytest.mark.parametrize("flag", ["-d", "-dx", "-d0"])
+def test_device_flag_is_accepted_as_the_jax_cli_accepts_it(flag, volumes, tmp_path, monkeypatch):
+    """-d<N> picks the card; any other -d... means the default one, as the
+    JAX CLI accepts and ignores every -d... The .key equals the call
+    without the flag."""
+    for who, args in (("plain", []), ("flag", [flag])):
+        (tmp_path / who).mkdir()
+        monkeypatch.chdir(tmp_path / who)
+        assert tx_cli.main([*args, volumes["cube64"], "out.key"], device="cpu") == 0, who
+    assert (tmp_path / "flag" / "out.key").read_bytes() == (tmp_path / "plain" / "out.key").read_bytes()
+    monkeypatch.chdir(tmp_path)
+    assert jx_cli.main([flag, volumes["cube64"], "jax.key"]) == 0

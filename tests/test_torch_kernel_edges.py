@@ -26,7 +26,7 @@ import jax.numpy as jnp
 
 from sift3d.core.config import SiftConfig
 from sift3d.pipeline import features as jx_features
-from sift3d_torch.core.numerics import fma
+from sift3d_torch.core.numerics import fma_exact
 from sift3d_torch.kernels import gauss, gauss_cuda, hist_cuda
 from sift3d_torch.kernels.resample import interp_bin
 from test_torch_blur import fma_chain_axis, fma_chain_blur3d
@@ -183,7 +183,7 @@ def _skipping_chain(cx, cy, cz, w, band):
             hi = torch.where(nz.any(1), p - 1 - nz.flip(1).float().argmax(1), torch.full((c,), -1))
             live = ((fz[:, v] != 0).any(1)[:, None] & (lo[:, None] <= warp_hi) & (hi[:, None] >= warp_lo))
             prod = fy[:, v, ty] * fx[:, v, tx]  # [C, 121]
-            step = fma(fz[:, v, :, None].expand_as(part), prod[:, None, :].expand_as(part), part)
+            step = fma_exact(fz[:, v, :, None].expand_as(part), prod[:, None, :].expand_as(part), part)
             part = torch.where(live[:, None, :], step, part)
             skipped += int((~live[:, ::32]).sum())
         hist = hist + part
@@ -199,6 +199,33 @@ def test_skipping_zero_products_keeps_the_bits(case, band_name):
     got, skipped = _skipping_chain(*pts, band)
     assert skipped > 0.3  # most warps skip most points
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("band_name", ["sigma 0.5", "identity", "full"])
+@pytest.mark.parametrize("weights", ["finite", "with inf and nan"])
+def test_plain_splat_box_is_the_whole_splat(band_name, weights):
+    """splat_blur_plain updates only each point's box of nonzero factors;
+    against every bin for every point (hist_cuda._splat_full) on points
+    that reach past both ends of the grid, with zero and negative weights:
+    the same bits. A band without zeros, or a non-finite weight, takes the
+    whole splat."""
+    rng = np.random.default_rng(12)
+    c, v = 24, 300
+    cx, cy, cz = (torch.from_numpy(rng.uniform(-1.5, 11.5, (c, v)).astype(np.float32)) for _ in range(3))
+    w = torch.from_numpy((rng.standard_normal((c, v)) * (rng.random((c, v)) > 0.2)).astype(np.float32))
+    if weights != "finite":
+        w[3, 7], w[5, 9] = float("inf"), float("nan")
+    band = {"sigma 0.5": BAND, "identity": torch.eye(hist_cuda.PATCH_DIM),
+            "full": torch.full((hist_cuda.PATCH_DIM,) * 2, 0.1)}[band_name]
+
+    def factors(u):
+        i0, w0 = interp_bin(u, hist_cuda.PATCH_DIM)
+        return w0[..., None] * band[i0] + (1.0 - w0)[..., None] * band[i0 + 1]
+
+    want = hist_cuda._splat_full(factors(cx), factors(cy), w[..., None] * factors(cz),
+                                 torch.zeros((c,) + (hist_cuda.PATCH_DIM,) * 3))
+    got = hist_cuda.splat_blur_plain(cx, cy, cz, w, band)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _octave_shapes(dims):

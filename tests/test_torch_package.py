@@ -25,6 +25,7 @@
 
 import ast
 import pathlib
+import re
 import sys
 import threading
 import time
@@ -395,3 +396,17 @@ def test_sharded_knn_and_solve_on_the_card(rng):
     want = solve_similarity(p, q, w, device="cuda:0")
     got = solve.solve_similarity_sharded(p, q, w, mesh)
     assert got[0] == want[0] and np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+
+
+def test_native_io_is_the_ports_own():
+    """The .key I/O library is built from the port's own csrc/key_text.cpp
+    into its _build/; no port file names the JAX package's native/
+    directory or its library."""
+    from sift3d_torch.io import native
+
+    assert native.SOURCE == PACKAGE / "csrc" / "key_text.cpp"
+    assert native.BUILD_DIR == cuda_lib.BUILD_DIR and native.BUILD_DIR in native.library_path().parents
+    files = [f for f in PACKAGE.rglob("*") if f.suffix in (".py", ".cu", ".cuh", ".cpp")
+             and cuda_lib.BUILD_DIR not in f.parents]
+    files.append(REPO / "chip_smoke.py")
+    assert [str(f) for f in files if re.search(r"sift3d_native|\bnative/", f.read_text())] == []
