@@ -8,10 +8,10 @@ Phases, each printing one line:
      the seconds the hand-written kernels took to build (nvcc, sm_90a) and
      the native .key I/O library (g++, io/native.py), the
      registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's, the
-     fused K2's and K4's and M1-M3's kernels from the build's nvcc.log, and
-     a warning naming any kernel that spills; the int8 tensor-core
-     instructions (IMMA) in M1's int8 kernels from cuobjdump -sass, which
-     must hold some;
+     fused K2's and K4's (GoH and BRIEF) and M1-M3's kernels from the
+     build's nvcc.log, and a warning naming any kernel that spills; the int8
+     tensor-core instructions (IMMA) in M1's and M2's int8 kernels from
+     cuobjdump -sass, which must hold some;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
@@ -30,7 +30,9 @@ Phases, each printing one line:
      fused K2 and K4, which no one PyTorch call computes, beside the device
      time of the eager chain each replaces on the same rows: the plain
      refinement, sampler and eigen test for K2, K4's patch mode and the
-     eager GoH descriptor for K4); K7
+     eager GoH descriptor for K4, K4's patch mode and the eager BRIEF
+     descriptor for the fused BRIEF kernels rotated_brief and brief, each
+     on T1's rows with the three variants); K7
      also with its launch geometry, its GB/s and the times of other
      geometries on the T1 and -2+ grids and (xy + z against the
      small-volume kernel) on the BRIEF batch; K1 on the T1 and -2+ stacks
@@ -50,7 +52,10 @@ Phases, each printing one line:
      a ramp with a faint second slope (a nearly degenerate pair), from the
      whole volume and from a Z slab (gz0 > 0), and the fused K4 on flat
      patches (all 64 bins tied), rows at scales above 8.80, rows reaching
-     outside the volume in x and slab rows; and the batched calls of
+     outside the volume in x and slab rows, the fused BRIEF kernels on the
+     same rows and patches with every variant and pair table, on a NaN patch
+     and on rows whose level is out of range (NaN patches); and the batched
+     calls of
      extract_features_many: K1 on the [4, 6, 182, 218, 182] octave-0 stacks
      of phase 12's first four volumes, the fused K2 on their candidate
      union (volume index vi) and the fused K4 on its reoriented rows over
@@ -62,7 +67,9 @@ Phases, each printing one line:
      kernel's launch count in that run (each must be > 0); then K8's and
      K9's own path (they have no caller on the main path): their entry
      points smooth_histogram and smooth_histogram_peaks on T1's
-     primary-histogram points, and the launches there;
+     primary-histogram points, and the launches there; and K4's patch mode
+     (no caller on a path since the BRIEF path is fused) through its entry
+     point on the extraction's reoriented rows;
   4. the same call without the timer (host wall of five calls) and once
      under torch.profiler: device busy milliseconds, the trace's span, the
      idle share against both (the profiler slows the host, so the share
@@ -76,12 +83,15 @@ Phases, each printing one line:
   6. the CLI with no flags (it runs on cuda:0) on that volume as NIfTI,
      against the CLI on the CPU: every main-path kernel launched, the two
      .key files byte-identical;
-  7. the CLI on the card at full width with each resampling flag and one
+  7. the CLI on the card at full width with each resampling flag and each
      descriptor flag: -2+ on the 182x218x182 texture (grid 364x436x364),
      -w and -ws on every other z-plane of it at 1x1x2 mm with a rotated
-     qform and sform (grid 182x218x182), -2- and -bn on it: wall
+     qform and sform (grid 182x218x182), -2-, -b, -br and -bn on it: wall
      milliseconds of two calls, .key rows, and every kernel's launches (the
-     fused K4 on the GoH flags, K4's patch mode and no fused K4 on -bn);
+     fused K4 on the GoH flags, the fused BRIEF kernels on -b, -br and
+     -bn, K4's patch mode on none); then the descriptors stage of
+     extract_features with GoH and each BRIEF variant under torch.profiler:
+     its launch calls and device ms;
   8. the CLI on the card against the CLI on the CPU for every flag, on the
      64^3-grid volumes of tests/test_torch_cli_flags.py: equal rows,
      locations and scales, identical descriptors, byte-identical .key files,
@@ -114,8 +124,10 @@ Phases, each printing one line:
      more call with the plain .key reader and writer and the plain match
      files: its read and write stage ms beside the native call's, the
      .update.key (write_key) and match-file (write_matches) ms a pair of
-     both, and its output files byte-identical to the native call's; then
-     M1's f32 route through its entry point knn_search on float rows;
+     both, and its output files byte-identical to the native call's; M2's
+     int8 route launched on featmatch's .key rows and its f32 route not;
+     then M1's and M2's f32 routes through their entry points knn_search
+     and ratio_match on float rows;
  11. the featmatch CLI on the card against the CLI on the CPU for every
      flag set of tests/test_torch_featmatch_cli.py and --refine, on its
      40^3 fixtures: every output file byte-identical;
@@ -134,7 +146,10 @@ tiled, rows from a 4-letter alphabet, 67-column -g rows) and on a quarter
 shard of 12,000 queries (the database cut into slices, then merged), and on
 its f32 route on 48,000 float rows (yardstick torch.cdist + torch.topk; the
 route and the launches printed), M2 on 31 stacked query sets against a
-969-row database (yardstick torch.cdist + the eager closed form), M3's
+969-row database on its int8 route and, on the same rows plus 0.25, its f32
+route (yardstick torch.cdist + the eager closed form; the route, the
+launches and the kernel's own device ms printed), M2 on both routes at the
+edge shapes D in {2, 3, 127, 128, 129, 969, 9000} on tie-heavy rows, M3's
 scores on stacks of 31 pairs of 1000 and of 3000 matches (beside 31
 single-pair launches) and at M = 1500 and 3000, and its inlier masks on the
 31 x 1000 stack's winners (beside the device time and launches of the eager
@@ -306,6 +321,32 @@ def patch_points(lvl, centers, scales, oris=None):
 GATHER_EIG_ROW_BYTES = 8 + 24 + 12 + 4 + 4 * 1331 + 12 + 36 + 2
 GATHER_EIG_ROW_FLOPS = (21 + 5) * 1331 + 15 * 485 + 450
 GOH_ROW_FLOPS = 5 * 1331 + 2 + 15 * 9**3 + 2 * 10**3 + 4 * 64 + 1
+
+
+@functools.cache
+def brief_row_flops(method: int, sigma: float, variant: str) -> int:
+    """The least f32 operations of one row of the fused BRIEF kernel after
+    its sampler: 5 a point to normalize, the mean's quotient and the norm's
+    root; the pre-blur's multiply and add for each tap in range, of the z
+    pass at the 128 pair endpoints, of the y pass at the points those read
+    and of the x pass at the points the y pass reads; a difference a pair,
+    and NRRIEF's quotient."""
+    import numpy as np
+
+    from sift3d_torch.kernels import descriptor
+    from sift3d_torch.kernels.gauss import gaussian_kernel_1d
+
+    r = len(gaussian_kernel_1d(sigma, 0.01)) // 2
+    p, q = descriptor.brief_pair_table(method)
+    ends = {(int(x), int(y), int(z)) for x, y, z in np.concatenate([p, q])}
+
+    def taps(o):
+        return min(10, o + r) - max(0, o - r) + 1
+
+    y_pts = {(x, y, z2) for x, y, z in ends for z2 in range(max(0, z - r), min(10, z + r) + 1)}
+    x_pts = {(x, y2, z) for x, y, z in y_pts for y2 in range(max(0, y - r), min(10, y + r) + 1)}
+    blur = sum(taps(z) for _, _, z in ends) + sum(taps(y) for _, y, _ in y_pts) + sum(taps(x) for x, _, _ in x_pts)
+    return 5 * 1331 + 2 + 2 * blur + 64 + (64 if variant == "nrrief" else 0)
 
 
 def touched_dogs(shape, lvl, zyx) -> int:
@@ -734,6 +775,32 @@ def fused_edges(dev, cfg) -> None:
     if max(errs.values()) != 0.0:
         raise AssertionError(f"the fused K4 differs from its plain version on the edge rows: {errs}")
 
+    # the fused BRIEF kernels on the same rows and patches (and a NaN patch),
+    # every variant and pair table; rows on a level out of range (a NaN
+    # patch) against K4's patch mode and the plain chain
+    patches[4] = float("nan")
+    nan_rows = [lv.clone(), *rows[1:]]
+    nan_rows[0][::5] = gstack.shape[0]
+    brief_errs = {}
+    for v in ("brief", "rrief", "nrrief"):
+        for m in range(5):
+            cases = {
+                "whole stack": (patch_cuda.rotated_brief(gstack, *rows, 0, None, v, m),
+                                patch_cuda.rotated_brief_plain(gstack, *rows, 0, None, v, m)),
+                "Z slab, z0 8": (patch_cuda.rotated_brief(slab, *small, 8, zd, v, m),
+                                 patch_cuda.rotated_brief_plain(slab, *small, 8, zd, v, m)),
+                "given patches": (patch_cuda.brief(patches, v, m), patch_cuda.brief_plain(patches, v, m)),
+                "levels out of range": (patch_cuda.rotated_brief(gstack, *nan_rows, 0, None, v, m),
+                                        patch_cuda.brief_plain(patch_cuda.sample_rotated(gstack, *nan_rows), v, m)),
+            }
+            for what, (got, want) in cases.items():
+                brief_errs[what] = max(brief_errs.get(what, 0.0), max_abs(got.float(), want.float()))
+    print(f"phase2 rotated_brief / brief edge rows: the rotated rows above, every 5th also on a level out "
+          f"of range, the slab rows, the given patches and a NaN patch; BRIEF, RRIEF, NRRIEF, pair tables 0-4; "
+          f"max_abs_err {json.dumps(brief_errs)} (exact)")
+    if max(brief_errs.values()) != 0.0:
+        raise AssertionError(f"the fused BRIEF kernels differ from their plain versions on the edge rows: {brief_errs}")
+
 
 def extrema_geometry_sweep(x, label, kernel) -> None:
     """K1 (kernel "dogs_extrema", x a Gaussian stack) or K6 ("extrema_mask",
@@ -1065,6 +1132,28 @@ def compare_kernels(vol, cfg):
             (4 * 1331 + 64) * prows.shape[0], GOH_ROW_FLOPS * prows.shape[0],
             chain=lambda: patch_cuda.goh_plain(prows),
         )
+        if label == "T1":
+            # the fused BRIEF kernels on the same rows, each variant; their
+            # yardstick is the chain they replace: K4's patch mode (rotated
+            # rows) and the eager BRIEF descriptor
+            m, sig = cfg.brief_method, cfg.brief_blur_sigma
+            for v in ("brief", "rrief", "nrrief"):
+                ops = brief_row_flops(m, sig, v)
+                record(
+                    "rotated_brief", "sift3d_torch/csrc/rotated_brief.cu", "sift3d/kernels/patch.py:889",
+                    lambda: patch_cuda.rotated_brief(gstack, *rrows, 0, None, v, m, sig),
+                    lambda: patch_cuda.rotated_brief_plain(gstack, *rrows, 0, None, v, m, sig),
+                    0.0, f"{rot_note}, {v}, pair table {m} (exact)", 56 * n_rows + 4 * touched + 64 * n_rows,
+                    (42 * 1331 + ops) * n_rows,
+                    chain=lambda: patch_cuda.brief_plain(patch_cuda.sample_rotated(gstack, *rrows), v, m, sig),
+                )
+                record(
+                    "brief", "sift3d_torch/csrc/rotated_brief.cu", "sift3d/pipeline/features.py:991",
+                    lambda: patch_cuda.brief(prows, v, m, sig), lambda: patch_cuda.brief_plain(prows, v, m, sig),
+                    0.0, f"{label}: {kidx.shape[0]} octave-0 unoriented rows as {prows.shape[0]} rows, {v} (exact)",
+                    (4 * 1331 + 64) * prows.shape[0], ops * prows.shape[0],
+                    chain=lambda: patch_cuda.brief_plain(prows, v, m, sig),
+                )
         del gstack, dogs, mask, pn
 
     return table_rows(results)
@@ -1114,15 +1203,19 @@ def run_cli(argv, workdir: str, device=None):
         os.chdir(here)
 
 
-# the kernels only the GoH descriptor runs, and the one only BRIEF runs
-GOH_ONLY, BRIEF_ONLY = ("rotated_goh", "goh"), ("sample_rotated",)
+# the kernels only the GoH descriptor runs, and the ones only BRIEF runs
+GOH_ONLY, BRIEF_ONLY = ("rotated_goh", "goh"), ("rotated_brief", "brief")
+BRIEF_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 
 
 def cli_full_width(vol_np, wrappers, tmp: str):
     """Phase 7: the CLI on the card with the flags at full width. wrappers
-    holds the main path's kernels and K4's patch mode (sample_rotated): the
-    GoH flags must launch all but that one, -bn all but the fused K4.
-    Returns the .key rows of each flag and the launches of the -bn run."""
+    holds the main path's kernels, the fused BRIEF kernels and K4's patch
+    mode (sample_rotated, on no path): the GoH flags must launch all but the
+    BRIEF kernels, -b, -br and -bn all but the GoH ones, none K4's patch
+    mode. Then the descriptors stage of extract_features with each BRIEF
+    variant under torch.profiler: its launch calls and device ms. Returns
+    the .key rows of each flag and the launches of the -bn run."""
     from sift3d_torch.io import keyfile, nifti
 
     t1 = os.path.join(tmp, "t1.nii")
@@ -1130,7 +1223,8 @@ def cli_full_width(vol_np, wrappers, tmp: str):
     aniso = os.path.join(tmp, "t1_aniso.nii")
     write_aniso(aniso, vol_np[::2], seed=4)
     rows_of = {}
-    for flag, path in (("-2+", t1), ("-w", aniso), ("-ws", aniso), ("-2-", t1), ("-bn", t1)):
+    for flag, path in (("-2+", t1), ("-w", aniso), ("-ws", aniso), ("-2-", t1), ("-b", t1), ("-br", t1),
+                       ("-bn", t1)):
         walls = []
         for _ in range(2):
             for w in wrappers.values():
@@ -1147,10 +1241,23 @@ def cli_full_width(vol_np, wrappers, tmp: str):
             f"phase7 CLI {flag} {os.path.basename(path)} on the card: wall_ms {walls!r}; "
             f"{rows} .key rows; {head[1].strip()}; launches {json.dumps(launches)}"
         )
-        idle = GOH_ONLY if flag == "-bn" else BRIEF_ONLY
+        idle = (GOH_ONLY if flag in BRIEF_FLAGS else BRIEF_ONLY) + ("sample_rotated",)
         if rows == 0 or any((launches[k] > 0) == (k in idle) for k in launches):
             raise AssertionError(f"the CLI with {flag} did not run its kernels: {launches}, {rows} rows")
         rows_of[flag] = rows
+    import torch
+
+    from sift3d_torch.core.config import DEFAULT_CONFIG
+    from sift3d_torch.pipeline.extract import extract_features
+
+    vol = torch.from_numpy(vol_np).cuda()
+    for descriptor in ("goh", *BRIEF_FLAGS.values()):
+        marks = stage_marks()
+        prof = device_profile(lambda: extract_features(vol, DEFAULT_CONFIG, timer=marks, descriptor=descriptor))
+        got = "not measured (no device events)" if prof is None else (
+            f"{prof[5].get('descriptors')} launch calls in {marks.counts['descriptors']} calls, "
+            f"{prof[6].get('descriptors')!r} device ms")
+        print(f"phase7 extract_features {descriptor}: the descriptors stage {got}")
     return rows_of, launches
 
 
@@ -1604,14 +1711,36 @@ def compare_matching(feats, cfg, dev):
     qt, dbt, xyzt, st = (put(np.ascontiguousarray(a)) for a in (q, db.desc, db.xyz, db.scale))
     thr, shift = float(np.float32(cfg.ratio_compat_log_scale)), float(cfg.ratio_compat_shift)
     nq, nd = q.shape[0], len(db)
-    record(
-        "ratio_match", "sift3d_torch/csrc/ratio_match.cu", "sift3d/match/pairwise.py:112",
-        lambda: pairwise.ratio_rows(qt, dbt, xyzt, st, thr, shift),
-        lambda: pairwise.ratio_rows_plain(qt, dbt, xyzt, st, thr, shift),
-        0.0, f"31 stacked query sets, {nq} rows, against {nd} database rows (exact)",
-        (nq + nd) * 64 * 4 + nd * 16 + nq * 12, 2.0 * nq * nd * 64,
-        library=lambda: pairwise.closed_form(torch.cdist(qt, dbt).square(), xyzt, st, thr, shift),
-    )
+    # M2 on its int8 route (the .key rows of featmatch), then on float rows
+    # of the same shape (its f32 route); each with its route and launches
+    for name, qr, dr in (("ratio_match_int8", qt, dbt), ("ratio_match_f32", qt + 0.25, dbt + 0.25)):
+        int8 = knn_cuda.int8_route(qr, dr)
+        wrapper = pairwise.ratio_rows_int8 if int8 else pairwise.ratio_rows_f32
+        if int8 != (name == "ratio_match_int8"):
+            raise AssertionError(f"M2 took the {'int8' if int8 else 'f32'} route for {name}")
+        before = wrapper.launches
+        pairwise.ratio_rows(qr, dr, xyzt, st, thr, shift)
+        torch.cuda.synchronize()
+        per_call = wrapper.launches - before
+        n_bytes = nq * 64 * 4 + nd * (64 * 4 + 16) + nq * 12
+        # the wrapper's times hold its route check (a host read); the launches alone:
+        alone = (f"; its pre-pass and kernel without the route check "
+                 f"{burst_ms(lambda: pairwise._int8(qr, dr, xyzt, st, thr, shift))!r} ms b2b" if int8 else "")
+        # int8: the product on the tensor cores, then a distance's sum, product
+        # and difference a pair; f32: the fma chains
+        flops, int8_ops = (3.0 * nq * nd, 2.0 * nq * nd * 64) if int8 else (2.0 * nq * nd * 64, 0.0)
+        record(
+            name, "sift3d_torch/csrc/ratio_match.cu", "sift3d/match/pairwise.py:112",
+            lambda: pairwise.ratio_rows(qr, dr, xyzt, st, thr, shift),
+            lambda: pairwise.ratio_rows_plain(qr, dr, xyzt, st, thr, shift),
+            0.0, f"31 stacked query sets, {nq} rows, against {nd} database rows, route "
+            f"{'int8' if int8 else 'f32'}, {per_call} launches a call; [events, device ms an "
+            f"event] of the kernel over 10 profiled calls "
+            f"{kernel_device_ms(lambda: pairwise.ratio_rows(qr, dr, xyzt, st, thr, shift), 'ratio_')}{alone} (exact)",
+            n_bytes, flops, int8_ops=int8_ops,
+            library=lambda: pairwise.closed_form(torch.cdist(qr, dr).square(), xyzt, st, thr, shift),
+        )
+    ratio_edges(dev, thr, shift)
 
     # M3's scores on stacks of 31 pairs (featmatch's one launch a call) and
     # on single pairs at the pairwise path's largest M (max_matches) and half
@@ -1674,13 +1803,50 @@ def compare_matching(feats, cfg, dev):
     return table_rows(results)
 
 
+def ratio_edges(dev, thr: float, shift: float) -> None:
+    """Phase 2 edge shapes of M2, each exact against its plain version on
+    both routes: 600 queries against D in {2, 3, 127, 128, 129, 969} rows
+    of a 3-letter alphabet (heavy ties; a third of the database repeated,
+    row 1 a copy of row 0 for D < 6; positions close enough that many events
+    are compatible and the partner changes inside a tile; tiles and halves
+    cut mid-way; half the scales e^log_thr times the others', up to 1e-3
+    off, so scale ratios fall in and beside the compatibility test's band),
+    and D = 9000 (more rows than the int8 kernel keeps geometry for in
+    shared memory: its second path)."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.match import pairwise
+
+    errs = {}
+    for d in (2, 3, 127, 128, 129, 969, 9000):
+        rng = np.random.default_rng(d)
+        db = rng.integers(0, 3, (d, 64)).astype(np.float32)
+        k = max(1, d // 3)
+        db[k : 2 * k] = db[:k]
+        q = np.concatenate([db[rng.integers(0, d, 300)], rng.integers(0, 3, (300, 64))]).astype(np.float32)
+        xyz = rng.uniform(0, 4, (d, 3)).astype(np.float32)
+        # scales whose ratios fall near e^+-log_thr: the compatibility test's band and f64 log
+        band = np.float32(np.exp(np.float64(thr))) * (1.0 + rng.choice([0.0, 1e-6, -1e-6, 1e-3, -1e-3], d))
+        scale = (2.0 * np.where(rng.random(d) < 0.5, band, 1.0)).astype(np.float32)
+        qt, dbt, xt, st = (torch.as_tensor(a, device=dev) for a in (q, db, xyz, scale))
+        for route, (qr, dr) in (("int8", (qt, dbt)), ("f32", (qt * 0.37, dbt * 0.37))):
+            wrapper = pairwise.ratio_rows_int8 if route == "int8" else pairwise.ratio_rows_f32
+            got = wrapper(qr, dr, xt, st, thr, shift)
+            want = pairwise.ratio_rows_plain(qr, dr, xt, st, thr, shift)
+            errs[f"D={d} {route}"] = max(max_abs(a.float(), b.float()) for a, b in zip(got, want))
+    print(f"phase2 ratio_match edge shapes, 600 tie-heavy queries: max_abs_err {json.dumps(errs)} (exact)")
+    if max(errs.values()) != 0.0:
+        raise AssertionError(f"M2 differs from its plain version at an edge shape: {errs}")
+
+
 def match_wrappers():
     from sift3d_torch.kernels import knn_cuda
     from sift3d_torch.match import hough, pairwise
 
     return {"knn_topk_int8": knn_cuda.knn_topk_int8, "knn_topk_f32": knn_cuda.knn_topk_f32,
-            "ratio_match": pairwise.ratio_rows, "hough_scores": hough.hough_scores,
-            "hough_inliers": hough.hough_inliers}
+            "ratio_match_int8": pairwise.ratio_rows_int8, "ratio_match_f32": pairwise.ratio_rows_f32,
+            "hough_scores": hough.hough_scores, "hough_inliers": hough.hough_inliers}
 
 
 def launch_timer(wrappers):
@@ -1825,9 +1991,13 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         f"{stages['hough'][0]!r} ms, M3 launches {hough_launches['hough_scores']} (scores) + "
         f"{hough_launches['hough_inliers']} (inlier masks), one profiled call: {hough_device}"
     )
-    # the f32 route of M1 takes no row a featmatch call makes
+    print(f"phase10 M2 on featmatch's .key rows: launches of the int8 route {launches['ratio_match_int8']} "
+          f"(its pre-pass and kernel, {stages['ratio_match'][1]['ratio_match_int8']} in the ratio_match stage), "
+          f"of the f32 route {launches['ratio_match_f32']}")
+    # the f32 routes of M1 and M2 take no row a featmatch call makes
     if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(
-            v for k, v in launches.items() if k != "knn_topk_f32") <= 0 or hough_launches["hough_scores"] != 1 or (
+            v for k, v in launches.items() if not k.endswith("_f32")) <= 0 or max(
+            launches["knn_topk_f32"], launches["ratio_match_f32"]) > 0 or hough_launches["hough_scores"] != 1 or (
             hough_launches["hough_inliers"] != 1):
         raise AssertionError(f"featmatch on the card missed a shift or a kernel: {errs.tolist()}, {launches}")
     return launches, names, snapshot
@@ -1859,6 +2029,35 @@ def knn_f32_entry(cfg, dev) -> int:
           f"int8 {int8}; equal to the plain version {exact}")
     if f32 != 1 or int8 != 0 or not exact:
         raise AssertionError("knn_search on float rows did not take M1's f32 route, or disagrees")
+    return f32
+
+
+def ratio_f32_entry(feats, cfg, dev) -> int:
+    """M2's f32 route has no caller in the repo that makes its rows: its
+    path is the entry point match.pairwise.ratio_match on feature sets whose
+    descriptors are not int8-range integers (here the T1 features' rows plus
+    seeded noise, against themselves), which must take the f32 route, equal
+    to the plain version. Returns its launches."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.match import pairwise
+
+    rng = np.random.default_rng(12)
+    fs = feats.select(np.arange(len(feats)))
+    fs.desc = (fs.desc + rng.normal(0, 0.5, fs.desc.shape)).astype(np.float32)
+    wrappers = (pairwise.ratio_rows_f32, pairwise.ratio_rows_int8)
+    for w in wrappers:
+        w.launches = 0
+    got = pairwise.ratio_match(fs, fs, cfg, device=dev)
+    torch.cuda.synchronize()
+    f32, int8 = (w.launches for w in wrappers)
+    want = pairwise.ratio_match(fs, fs, cfg, device="cpu")
+    exact = np.array_equal(got.db_idx, want.db_idx) and np.array_equal(got.ratio, want.ratio)
+    print(f"phase10 ratio_match on {len(fs)} float rows (the f32 route's entry point): launches f32 {f32}, "
+          f"int8 {int8}; equal to the plain version on the CPU {exact}")
+    if f32 != 1 or int8 != 0 or not exact:
+        raise AssertionError("ratio_match on float rows did not take M2's f32 route, or disagrees")
     return f32
 
 
@@ -1920,7 +2119,7 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
         print(f"phase11 featmatch {' '.join(flags) or '(no flags)'}: {len(files)} output files, the same names "
               f"{same}, byte-identical card = CPU {not differ} {differ}; card launches {json.dumps(launches)}")
         want_knn = "--all-to-all" in flags
-        if not same or differ or launches["ratio_match"] <= 0 or launches["hough_scores"] <= 0 or (
+        if not same or differ or launches["ratio_match_int8"] <= 0 or launches["hough_scores"] <= 0 or (
                 launches["hough_inliers"] <= 0) or (want_knn and launches["knn_topk_int8"] <= 0):
             raise AssertionError(f"featmatch {flags}: the card disagrees with the CPU or ran no kernel")
 
@@ -2261,6 +2460,34 @@ TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",),
                "rotated_goh": ("::goh_kernel<true>",), "goh": ("::goh_kernel<false>",)}
 
 
+def sample_rotated_entry(vol, feats, cfg) -> int:
+    """K4's patch mode has no caller on a path since the BRIEF path is fused:
+    its path is its entry point patch_cuda.sample_rotated, here on the T1
+    octave-0 stack at the extraction's reoriented rows (levels 1-3 in turn).
+    Returns its launches."""
+    import numpy as np
+    import torch
+
+    from sift3d_torch.kernels import patch_cuda
+
+    gstack = dogs_stack_rows(vol, cfg)[0]
+    sel = np.nonzero(feats.is_reoriented)[0]
+    dev = gstack.device
+    lvl = torch.as_tensor(sel % 3 + 1, dtype=torch.int32, device=dev)
+    rows = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
+            for a in (feats.xyz[sel], feats.scale[sel], feats.ori[sel])]
+    patch_cuda.sample_rotated.launches = 0
+    patches = patch_cuda.sample_rotated(gstack, lvl, *rows)
+    torch.cuda.synchronize()
+    n = patch_cuda.sample_rotated.launches
+    ok = bool(torch.isfinite(patches).all())
+    print(f"phase3 K4's patch mode entry point (sample_rotated) on {len(sel)} reoriented T1 rows: patches "
+          f"{tuple(patches.shape)}, finite {ok}; launches {n}")
+    if n != 1 or not ok:
+        raise AssertionError("K4's patch mode did not run through its entry point")
+    return n
+
+
 def stage_marks():
     """A timer for extract_features that opens a torch.profiler range
     "stage:<name>" around each stage, without synchronizing, and counts the
@@ -2314,17 +2541,20 @@ def main() -> int:
         f"({native.library_path().parent.name})"
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
-                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel",
-                              "knn_", "ratio_match", "hough_kernel"))
+                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel", "brief_kernel",
+                              "knn_", "ratio_", "hough_kernel"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
           f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
-          f"<0> on given patches), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
-          f"knn_merge_kernel<KM>; its f32 route: knn_topk_kernel<C, KM>), M2 and M3 (hough_kernel, both "
-          f"modes): {json.dumps(redesigned)}")
-    imma = sass_count("knn_topk_i8_kernel", "IMMA")
-    print(f"phase1 cuobjdump -sass: int8 tensor-core instructions (IMMA) in M1's int8 kernels {json.dumps(imma)}")
-    if not imma or min(imma.values()) <= 0:
-        raise AssertionError(f"M1's int8 kernels hold no IMMA instruction: {imma}")
+          f"<0> on given patches; brief_kernel<R, 1> sampling, <R, 0> on given patches, R the pre-blur's "
+          f"radius), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
+          f"knn_merge_kernel<KM>; its f32 route: knn_topk_kernel<C, KM>), M2 (its int8 route: "
+          f"ratio_i8_kernel<1> with the geometry in shared memory, <0> without; its f32 route: "
+          f"ratio_match_kernel) and M3 (hough_kernel, both modes): {json.dumps(redesigned)}")
+    for kernel, what in (("knn_topk_i8_kernel", "M1's int8 kernels"), ("ratio_i8_kernel", "M2's int8 kernels")):
+        imma = sass_count(kernel, "IMMA")
+        print(f"phase1 cuobjdump -sass: int8 tensor-core instructions (IMMA) in {what} {json.dumps(imma)}")
+        if not imma or min(imma.values()) <= 0:
+            raise AssertionError(f"{what} hold no IMMA instruction: {imma}")
     spills = sorted(k for k, v in nvcc_report(("",)).items() if v[2] or v[3])
     if spills:
         print(f"phase1 warning: kernels that spill registers: {spills}")
@@ -2386,6 +2616,7 @@ def main() -> int:
         raise AssertionError(f"the K8/K9 entry points did not run their kernels: {entry_launches}")
     launches.update({k: entry_launches[k] for k in ("splat_histogram_raw", "smooth_histogram_peaks")})
     del pn, e3, wgt, centred, smoothed, hb, pk
+    launches["sample_rotated"] = sample_rotated_entry(vol, feats, cfg)
 
     walls = []
     for _ in range(5):
@@ -2470,9 +2701,11 @@ def main() -> int:
         raise AssertionError("the CLI did not run the kernels on the card, or disagrees with the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
-        rows_of, bn_launches = cli_full_width(vol_np, dict(wrappers, sample_rotated=patch_cuda.sample_rotated), tmp)
-    # K4's patch mode runs on the BRIEF path only: its launches are -bn's
-    launches["sample_rotated"] = bn_launches["sample_rotated"]
+        rows_of, bn_launches = cli_full_width(
+            vol_np, dict(wrappers, rotated_brief=patch_cuda.rotated_brief, brief=patch_cuda.brief,
+                         sample_rotated=patch_cuda.sample_rotated), tmp)
+    # the fused BRIEF kernels run on the BRIEF path only: their launches are -bn's
+    launches.update(rotated_brief=bn_launches["rotated_brief"], brief=bn_launches["brief"])
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]
@@ -2480,6 +2713,7 @@ def main() -> int:
         match_launches, key_names, snapshot = featmatch_full_width(vol, cfg, dev, keys_dir)
         launches.update(match_launches)
         launches["knn_topk_f32"] = knn_f32_entry(cfg, dev)
+        launches["ratio_match_f32"] = ratio_f32_entry(feats, cfg, dev)
         with tempfile.TemporaryDirectory() as tmp:
             featmatch_card_vs_cpu(tmp)
         # the batched rows' launches are phase 12's at B = 4

@@ -41,7 +41,8 @@
 // 50 MB L2). Batches of small volumes (Z <= 16, Y * X <= 256: the BRIEF
 // pre-blur's and the histogram blur's 11^3) are blurred whole in shared
 // memory instead, several to a 256-thread block, one thread per (y, x)
-// column: x pass, y pass, then the z pass from the column's registers. The
+// column: x pass, y pass, then the z pass from the column's registers, each
+// output common.cuh's blur_chain (the fused BRIEF kernel's pre-blur too). The
 // radius, RY and SEG are template parameters, the taps a kernel parameter
 // (constant bank). The launch geometry is chosen per shape by
 // sift3d_torch.kernels.gauss_cuda.blur_launch_geometry.
@@ -50,16 +51,14 @@
 
 namespace {
 
-constexpr int MAX_R = 8;   // sigma 3.09 (the widest pyramid blur) has r = 8
+constexpr int MAX_R = sift3d::kBlurMaxR;
 constexpr int TX = 32;     // xy tile columns, one per thread
 constexpr int ROWS = 8;    // thread rows of a block
 constexpr int THREADS = TX * ROWS;
 constexpr int SMALL_Z = 16;
 constexpr int SMALL_COLS = THREADS;
 
-struct Taps {
-  float t[2 * MAX_R + 1];
-};
+using Taps = sift3d::BlurTaps;
 
 // x pass of four adjacent outputs c0 .. c0 + 3 of one tile row (row: the
 // row's first halo column, 16-byte aligned): the inputs come in as float4s,
@@ -148,7 +147,6 @@ template <int R>
 __global__ void __launch_bounds__(THREADS)
 blur3d_small_kernel(const float* __restrict__ in, float* __restrict__ out, Taps taps, int B,
                     int Z, int Y, int X, int vpb) {
-  constexpr int NT = 2 * R + 1;
   __shared__ float buf[SMALL_Z * SMALL_COLS];  // vpb whole volumes
   const int tid = threadIdx.x;
   const int cols = Y * X, vox = Z * cols;
@@ -164,17 +162,8 @@ blur3d_small_kernel(const float* __restrict__ in, float* __restrict__ out, Taps 
   __syncthreads();
   if (active) {  // x pass
 #pragma unroll
-    for (int z = 0; z < SMALL_Z; ++z) {
-      if (z < Z) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < NT; ++k) {
-          const int xi = x - R + k;
-          if (xi >= 0 && xi < X) acc = __fmaf_rn(taps.t[k], vol[(z * Y + y) * X + xi], acc);
-        }
-        r[z] = acc;
-      }
-    }
+    for (int z = 0; z < SMALL_Z; ++z)
+      if (z < Z) r[z] = sift3d::blur_chain<R>(taps, x, X, [&](int i) { return vol[(z * Y + y) * X + i]; });
   }
   __syncthreads();
   if (active) {
@@ -185,30 +174,16 @@ blur3d_small_kernel(const float* __restrict__ in, float* __restrict__ out, Taps 
   __syncthreads();
   if (!active) return;
 #pragma unroll
-  for (int z = 0; z < SMALL_Z; ++z) {  // y pass
-    if (z < Z) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        const int yi = y - R + k;
-        if (yi >= 0 && yi < Y) acc = __fmaf_rn(taps.t[k], vol[(z * Y + yi) * X + x], acc);
-      }
-      r[z] = acc;
-    }
-  }
+  for (int z = 0; z < SMALL_Z; ++z)  // y pass
+    if (z < Z) r[z] = sift3d::blur_chain<R>(taps, y, Y, [&](int i) { return vol[(z * Y + i) * X + x]; });
   float* dst = out + base + (size_t)vb * vox + col;
+  // z pass from the column's registers (Z <= SMALL_Z: the guard only keeps
+  // the unrolled indices inside the array)
 #pragma unroll
-  for (int z = 0; z < SMALL_Z; ++z) {  // z pass from the column's registers
-    if (z < Z) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        const int zi = z - R + k;
-        if (zi >= 0 && zi < SMALL_Z && zi < Z) acc = __fmaf_rn(taps.t[k], r[zi], acc);
-      }
-      dst[(size_t)z * cols] = acc;
-    }
-  }
+  for (int z = 0; z < SMALL_Z; ++z)
+    if (z < Z)
+      dst[(size_t)z * cols] =
+          sift3d::blur_chain<R>(taps, z, Z, [&](int i) { return i < SMALL_Z ? r[i] : 0.0f; });
 }
 
 // The z pass: the batch viewed as [B, Z, inner = Y * X]. A thread loads

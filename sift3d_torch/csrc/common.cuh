@@ -195,6 +195,31 @@ __device__ __forceinline__ bool in_sphere(int i) {
   return z * z + y * y + x * x < kPatchRad * kPatchRad;
 }
 
+// ---- the 11^3 blur (K7's small-volume kernel, the fused BRIEF kernel) ----
+
+constexpr int kBlurMaxR = 8;  // sigma 3.09 (the widest pyramid blur) has r = 8
+
+// The taps of a zero-border blur of radius r <= kBlurMaxR, passed by value
+// (a kernel parameter: the constant bank).
+struct BlurTaps {
+  float t[2 * kBlurMaxR + 1];
+};
+
+// Output o of one axis pass of a zero-border blur of radius R over n inputs
+// v(i): the fused multiply-add chain from 0 over the taps whose input lies in
+// [0, n), in ascending input index (gauss.blur3d's chain; v is called only
+// for i in range).
+template <int R, class V>
+__device__ __forceinline__ float blur_chain(const BlurTaps& taps, int o, int n, V v) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 2 * R + 1; ++k) {
+    const int i = o - R + k;
+    if (i >= 0 && i < n) acc = __fmaf_rn(taps.t[k], v(i), acc);
+  }
+  return acc;
+}
+
 // torch.maximum / amax and torch.minimum / amin: NaN wins.
 __device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
 __device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
@@ -223,6 +248,58 @@ __device__ __forceinline__ float window_sq_norm(X x) {
     tot = tot + acc;
   }
   return tot;
+}
+
+// ---- the matching kernels' int8 route (M1, M2) ----
+
+// Four values of an int8-range integer row, packed little-endian.
+__device__ __forceinline__ int pack4(const float* v) {
+  unsigned w = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) w |= ((unsigned)__float2int_rn(v[u]) & 0xffu) << (8 * u);
+  return (int)w;
+}
+
+// c += a b on the int8 tensor cores: m16n8k32, s8 inputs, s32 sums.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments of m16n8k32 for the 16 query rows q0 .. q0 + 15 of a warp
+// (rows >= Q read as zeros), with the k order permuted: step s, register
+// 2h + r holds bytes 16t + 8s + 4h .. + 3 of row g + 8r (g, t: the lane's
+// group and thread in group); a B fragment holds the same bytes of its
+// column, so one 16-byte load of a 64-byte row gives both steps.
+__device__ __forceinline__ void query_fragments(const float* q, int C, int q0, int Q, int (&a)[2][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + g + 8 * r;
+    const bool live = row < Q;
+    const float* qr = q + (size_t)(live ? row : 0) * C;
+    int w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) w[u] = live ? pack4(qr + 16 * t + 4 * u) : 0;
+    a[0][r] = w[0];
+    a[0][2 + r] = w[1];
+    a[1][r] = w[2];
+    a[1][2 + r] = w[3];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Select the device, then launch on `stream`; returns cudaGetLastError().

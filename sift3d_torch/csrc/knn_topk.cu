@@ -91,6 +91,12 @@
 
 namespace {
 
+using sift3d::cp_async16;
+using sift3d::cp_async_commit;
+using sift3d::cp_async_wait;
+using sift3d::mma_s8;
+using sift3d::pack4;
+
 // ---- the f32 route ----
 
 constexpr int kThreads = 128;  // queries per block
@@ -235,33 +241,6 @@ __device__ __forceinline__ void insert_lex(float (&bd)[KM], int (&bi)[KM], float
   }
 }
 
-// Four values of an int8-range integer row, packed little-endian.
-__device__ __forceinline__ int pack4(const float* v) {
-  unsigned w = 0;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) w |= ((unsigned)__float2int_rn(v[u]) & 0xffu) << (8 * u);
-  return (int)w;
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], int b0, int b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // db [N, C] f32 -> db8 [Npad, 64] int8, dn [Npad] (window_sq_norm of the
 // f32 row), tail [Npad, 3] (C = 67: the geometry columns); rows N..Npad-1
 // are zeros. One row a thread.
@@ -330,22 +309,9 @@ knn_topk_i8_kernel(const float* __restrict__ q, const int* __restrict__ db8, con
       for (int c = 0; c < 3; ++c) q_t[tid * 3 + c] = live ? qr[64 + c] : 0.0f;
     }
   }
-  // A fragments of m16n8k32 (a0, a2: row g; a1, a3: row g + 8), with the
-  // k order permuted: step s, register 2h + r holds bytes 16t + 8s + 4h ..
-  // + 3 of row r (and B the same bytes of its column)
+  // A fragments of m16n8k32 (a0, a2: row g; a1, a3: row g + 8)
   int a[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool live = row[r] < Q;
-    const float* qr = q + (size_t)(live ? row[r] : 0) * C;
-    int w[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) w[u] = live ? pack4(qr + 16 * t + 4 * u) : 0;
-    a[0][r] = w[0];
-    a[0][2 + r] = w[1];
-    a[1][r] = w[2];
-    a[1][2 + r] = w[3];
-  }
+  sift3d::query_fragments(q, C, q0 + warp * 16, Q, a);
   __syncthreads();
   float qn[2], qt[2][3];
   int lim[2];  // C = 64: the last slot's distance in integers, less qn (INT_MAX while it is inf)

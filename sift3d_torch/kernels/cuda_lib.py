@@ -76,6 +76,12 @@ SIGNATURES = {
     "sift3d_rotated_goh": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I),
     # patches [R,11,11,11], out [R,64] u8, R
     "sift3d_goh": (_P, _P, _I),
+    # the fused BRIEF kernel: gstack, lvl, centers, scales, oris, pairs [2,64] i32 (flat voxel
+    # indices), divisor [64] f32, taps [2r+1] f32 in host memory, r, variant (0 BRIEF, 1 RRIEF,
+    # 2 NRRIEF), out [R,64] u8, R, L, Z, Y, X, z0, depth; on given patches [R,11,11,11]:
+    # patches, pairs, divisor, taps, r, variant, out, R
+    "sift3d_rotated_brief": (_P,) * 8 + (_I, _I, _P) + (_I,) * 7,
+    "sift3d_brief": (_P, _P, _P, _P, _I, _I, _P, _I),
     # M1's f32 route: q [Q,C], db [N,C] f32, out dist [Q,k] f32, idx [Q,k] i64, Q, N, C, k
     "sift3d_knn_topk": (_P, _P, _P, _P, _I, _I, _I, _I),
     # M1's int8 route (knn_cuda.int8_plan): the pre-pass db [N,C] f32 -> db8 [Npad,64] i8,
@@ -87,9 +93,11 @@ SIGNATURES = {
     "sift3d_knn_merge": (_P, _P, _P, _P, _I, _I, _I),
     # the int8 main kernel's blocks an SM (occupancy API) for C, k, into an int in host memory
     "sift3d_knn_i8_blocks_per_sm": (_I, _I, _P),
-    # q [Q,64], db [D,64], xyz [D,3], scale [D] f32, out idx [Q] i64, ratio [Q] f32, Q, D,
-    # log_thr, shift
+    # M2's f32 route: q [Q,64], db [D,64], xyz [D,3], scale [D] f32, out idx [Q] i64, ratio [Q] f32,
+    # Q, D, log_thr, shift; its int8 route: q, db8 [Dpad,64] i8 and dn [Dpad] f32 from
+    # sift3d_knn_prep_i8, xyz, scale, idx, ratio, Q, D, log_thr, shift
     "sift3d_ratio_match": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F),
+    "sift3d_ratio_match_i8": (_P,) * 7 + (_I, _I, _F, _F),
     # mode (0 scores, 1 inliers), rots [M,9], hscale [M], p0 [M,3], p1 [M,3], s0 [M], s1 [M],
     # o0 [M,9], o1 [M,9] f32, offsets [P+1] i32, block offsets [P+1] i32 (hough.segment_blocks),
     # winners [P] i32 (the three null for one pair), scores [M] i32 (zeroed), mask [M] u8, P, M,

@@ -172,6 +172,22 @@ def brief_pair_table(method: int = 2):
     return p, q
 
 
+BRIEF_VARIANTS = ("brief", "rrief", "nrrief")
+
+
+@functools.lru_cache(maxsize=None)
+def brief_pairs(method: int, device: torch.device):
+    """The pair table of `method` on `device`, made once a device and shared
+    by the plain version and the fused kernel: (flat voxel indices int32
+    [2, 64], z * 121 + y * 11 + x of each pair's p, then of its q; NRRIEF's
+    divisors max(int(|p - q|), 1) as f32 [64])."""
+    p, q = brief_pair_table(method)
+    # table entries are (x, y, z); patches are [C, z, y, x]
+    flat = np.stack([(t[:, 2] * PATCH_DIM + t[:, 1]) * PATCH_DIM + t[:, 0] for t in (p, q)]).astype(np.int32)
+    dist = np.maximum(np.sqrt(((p - q) ** 2).sum(axis=1)).astype(np.int32), 1).astype(np.float32)
+    return torch.from_numpy(flat).to(device), torch.from_numpy(dist).to(device)
+
+
 def brief_descriptor(
     patches_norm: torch.Tensor, variant: str = "rrief", method: int = 2, blur_sigma: float = 0.95,
 ) -> torch.Tensor:
@@ -184,16 +200,13 @@ def brief_descriptor(
     max(int(|p - q|), 1) (the distance truncated to an integer, and
     guarded for identical points).
     """
-    if variant not in ("brief", "rrief", "nrrief"):
+    if variant not in BRIEF_VARIANTS:
         raise ValueError(f"unknown BRIEF variant: {variant}")
-    p, q = brief_pair_table(method)
-    blurred = gauss_cuda.blur3d(patches_norm.contiguous(), blur_sigma, 0.01)
-    # table entries are (x, y, z); patches are [C, z, y, x]
-    pt, qt = (torch.from_numpy(t.astype(np.int64)).to(blurred.device) for t in (p, q))
-    d = blurred[:, pt[:, 2], pt[:, 1], pt[:, 0]] - blurred[:, qt[:, 2], qt[:, 1], qt[:, 0]]
+    blurred = gauss_cuda.blur3d(patches_norm.contiguous(), blur_sigma, 0.01).flatten(1)
+    flat, dist = brief_pairs(method, blurred.device)
+    d = blurred.index_select(1, flat[0]) - blurred.index_select(1, flat[1])
     if variant == "brief":
         return (d < 0).to(patches_norm.dtype)
     if variant == "rrief":
         return d
-    dist = np.maximum(np.sqrt(((p - q) ** 2).sum(axis=1)).astype(np.int32), 1)
-    return d / torch.from_numpy(dist.astype(np.float32)).to(d.device)
+    return d / dist

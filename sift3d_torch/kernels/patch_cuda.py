@@ -7,10 +7,13 @@ the card it runs inside the fused K2 (``features.gather_eig``,
 ``csrc/identity_eig.cu``). K4 :func:`sample_rotated` replaces
 ``sample_patches_rotated_slab`` and, for the large-scale tail,
 ``sample_patches_rotated_pallas`` (K5) in one kernel
-(``csrc/sample_rotated.cu``, the BRIEF descriptors' patches). The fused K4,
-:func:`rotated_goh` (and :func:`goh` on given patches), samples a rotated
-patch and computes its GoH-64 rank descriptor in one block
-(``csrc/rotated_goh.cu``); the GoH path runs it.
+(``csrc/sample_rotated.cu``; an entry point, on no path since the BRIEF
+path is fused too). The fused K4, :func:`rotated_goh` (and :func:`goh` on
+given patches), samples a rotated patch and computes its GoH-64 rank
+descriptor in one block (``csrc/rotated_goh.cu``); the GoH path runs it.
+:func:`rotated_brief` (and :func:`brief`) does the same for the BRIEF
+family, pre-blur included (``csrc/rotated_brief.cu``); the BRIEF path
+(``-b``, ``-br``, ``-bn``) runs it.
 
 Both samplers read the full level volume with the _interp_coord rule (no boxes),
 so they carry no scale bound. The volume may be a Z slab of a deeper one
@@ -28,7 +31,7 @@ from __future__ import annotations
 
 import torch
 
-from sift3d_torch.kernels import cuda_lib, descriptor
+from sift3d_torch.kernels import cuda_lib, descriptor, gauss_cuda
 from sift3d_torch.kernels.patch import PATCH_DIM, PATCH_RAD, invert_3x3, normalize_patches, patch_grid
 from sift3d_torch.kernels.resample import interp_coord
 
@@ -174,40 +177,54 @@ def rotated_goh_plain(gstack, lvl, centers, scales, oris, z0: int = 0, depth=Non
     return goh_plain(sample_rotated_plain(gstack, lvl, centers, scales, oris, z0, depth))
 
 
-def _goh_out(r: int, device) -> torch.Tensor:
-    return torch.empty((r, 64), dtype=torch.uint8, device=device)
+def _desc_out(r: int, device, out=None) -> torch.Tensor:
+    """The uint8 [r, 64] descriptor rows a wrapper writes: `out` (checked)
+    when the caller gives one, so that a stage's rows land in one tensor
+    without a copy, else a new tensor."""
+    if out is None:
+        return torch.empty((r, 64), dtype=torch.uint8, device=device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (r, 64) or out.device != device or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous uint8 [{r}, 64] tensor on {device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
 
 
-def goh(patches) -> torch.Tensor:
+def _plain_into(out, rows: torch.Tensor) -> torch.Tensor:
+    """A plain version's rows, copied into `out` when the caller gives one."""
+    return rows if out is None else _desc_out(rows.shape[0], rows.device, out).copy_(rows)
+
+
+def goh(patches, out=None) -> torch.Tensor:
     """Fused K4 on already-sampled patches [R, 11, 11, 11] (the unoriented
     rows): :func:`goh_plain` in one launch, one block per row
-    (``csrc/rotated_goh.cu``)."""
+    (``csrc/rotated_goh.cu``), into `out` (uint8 [R, 64]) when given."""
     if cuda_lib.route(patches) == "plain":
-        return goh_plain(patches)
+        return _plain_into(out, goh_plain(patches))
     cuda_lib.require_cuda(patches, "patches", torch.float32, 4)
     if tuple(patches.shape[1:]) != (PATCH_DIM,) * 3:
         raise ValueError(f"patches must be [R, 11, 11, 11], got {tuple(patches.shape)}")
-    out = _goh_out(patches.shape[0], patches.device)
+    out = _desc_out(patches.shape[0], patches.device, out)
     if patches.shape[0]:
         cuda_lib.launch("sift3d_goh", patches, out, patches.shape[0], device=patches.device)
         cuda_lib.count_launch(goh)
     return out
 
 
-def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> torch.Tensor:
+def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None, out=None) -> torch.Tensor:
     """Fused K4: rotated 11^3 patches (K4's sampler) and their GoH-64 rank
     descriptors in one launch, one block per row; the patch stays in the
     block's shared memory. Arguments as :func:`sample_rotated`; returns
-    uint8 [R, 64] as :func:`rotated_goh_plain`, which runs for CPU tensors."""
+    uint8 [R, 64] as :func:`rotated_goh_plain`, which runs for CPU tensors,
+    in `out` when given."""
     if cuda_lib.route(gstack) == "plain":
-        return rotated_goh_plain(gstack, lvl, centers, scales, oris, z0, depth)
+        return _plain_into(out, rotated_goh_plain(gstack, lvl, centers, scales, oris, z0, depth))
     r = _check_rows(gstack, lvl, centers, scales)
     z0, depth = _slab_args(gstack, z0, depth)
     cuda_lib.require_cuda(oris, "oris", torch.float32, 3)
     if oris.shape != (r, 3, 3) or oris.device != gstack.device:
         raise ValueError(f"oris must be [{r}, 3, 3] on {gstack.device}, got {tuple(oris.shape)}")
     nl, zd, yd, xd = gstack.shape
-    out = _goh_out(r, gstack.device)
+    out = _desc_out(r, gstack.device, out)
     if r:
         cuda_lib.launch(
             "sift3d_rotated_goh", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
@@ -217,6 +234,86 @@ def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) -> 
     return out
 
 
+def brief_plain(patches, variant: str, method: int = 2, blur_sigma: float = 0.95) -> torch.Tensor:
+    """BRIEF, RRIEF or NRRIEF rank descriptors of raw patches [R, 11, 11,
+    11]: normalize, the pre-blur, the pair differences, the variant, rank;
+    uint8 [R, 64] (featExtract.cpp:477-499). The plain version of
+    :func:`brief`."""
+    d = descriptor.brief_descriptor(normalize_patches(patches), variant, method, blur_sigma)
+    return descriptor.rank_normalize(d).to(torch.uint8)
+
+
+def rotated_brief_plain(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None, variant: str = "brief",
+                        method: int = 2, blur_sigma: float = 0.95) -> torch.Tensor:
+    """The BRIEF-family rank descriptors of the rotated patches of
+    :func:`sample_rotated_plain`; uint8 [R, 64]."""
+    return brief_plain(sample_rotated_plain(gstack, lvl, centers, scales, oris, z0, depth), variant, method,
+                       blur_sigma)
+
+
+def _brief_args(variant: str, method: int, blur_sigma: float, device):
+    """The fused BRIEF kernel's table, divisors, host taps, radius and
+    variant code."""
+    if variant not in descriptor.BRIEF_VARIANTS:
+        raise ValueError(f"unknown BRIEF variant: {variant}")
+    taps = gauss_cuda.host_taps(float(blur_sigma), 0.01)
+    r = taps.shape[0] // 2
+    if not 1 <= r <= gauss_cuda.MAX_RADIUS:
+        raise ValueError(f"the fused BRIEF kernel takes blur radii 1..{gauss_cuda.MAX_RADIUS}, got {r} "
+                         f"(sigma {blur_sigma})")
+    flat, dist = descriptor.brief_pairs(method, device)
+    return flat, dist, taps, r, descriptor.BRIEF_VARIANTS.index(variant)
+
+
+def brief(patches, variant: str, method: int = 2, blur_sigma: float = 0.95, out=None) -> torch.Tensor:
+    """The fused BRIEF kernel on already-sampled patches [R, 11, 11, 11]
+    (the unoriented rows): :func:`brief_plain` in one launch, one block per
+    row (``csrc/rotated_brief.cu``), into `out` (uint8 [R, 64]) when
+    given."""
+    if cuda_lib.route(patches) == "plain":
+        return _plain_into(out, brief_plain(patches, variant, method, blur_sigma))
+    cuda_lib.require_cuda(patches, "patches", torch.float32, 4)
+    if tuple(patches.shape[1:]) != (PATCH_DIM,) * 3:
+        raise ValueError(f"patches must be [R, 11, 11, 11], got {tuple(patches.shape)}")
+    flat, dist, taps, r, code = _brief_args(variant, method, blur_sigma, patches.device)
+    out = _desc_out(patches.shape[0], patches.device, out)
+    if patches.shape[0]:
+        cuda_lib.launch("sift3d_brief", patches, flat, dist, taps, r, code, out, patches.shape[0],
+                        device=patches.device)
+        cuda_lib.count_launch(brief)
+    return out
+
+
+def rotated_brief(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None, variant: str = "brief",
+                  method: int = 2, blur_sigma: float = 0.95, out=None) -> torch.Tensor:
+    """The fused BRIEF kernel: rotated 11^3 patches (K4's sampler) and their
+    BRIEF, RRIEF or NRRIEF rank descriptors (pair table `method`, pre-blur
+    `blur_sigma`) in one launch, one block per row; the patch stays in the
+    block's shared memory. Sampling arguments as :func:`sample_rotated`;
+    returns uint8 [R, 64] as :func:`rotated_brief_plain`, which runs for
+    CPU tensors, in `out` when given."""
+    if cuda_lib.route(gstack) == "plain":
+        return _plain_into(out, rotated_brief_plain(gstack, lvl, centers, scales, oris, z0, depth, variant, method,
+                                                    blur_sigma))
+    r = _check_rows(gstack, lvl, centers, scales)
+    z0, depth = _slab_args(gstack, z0, depth)
+    cuda_lib.require_cuda(oris, "oris", torch.float32, 3)
+    if oris.shape != (r, 3, 3) or oris.device != gstack.device:
+        raise ValueError(f"oris must be [{r}, 3, 3] on {gstack.device}, got {tuple(oris.shape)}")
+    flat, dist, taps, radius, code = _brief_args(variant, method, blur_sigma, gstack.device)
+    nl, zd, yd, xd = gstack.shape
+    out = _desc_out(r, gstack.device, out)
+    if r:
+        cuda_lib.launch(
+            "sift3d_rotated_brief", gstack, lvl, centers, scales, oris, flat, dist, taps, radius, code, out, r,
+            nl, zd, yd, xd, z0, depth, device=gstack.device,
+        )
+        cuda_lib.count_launch(rotated_brief)
+    return out
+
+
 sample_rotated.launches = 0
 goh.launches = 0
 rotated_goh.launches = 0
+brief.launches = 0
+rotated_brief.launches = 0

@@ -9,10 +9,15 @@ package implements the intent).
 
 The reference walks the database sequentially per query, keeping a (1st,
 2nd)-nearest state with geometric-compatibility shuffling. The kernel M2
-(:func:`ratio_rows`, ``csrc/ratio_match.cu``) runs that state machine, one
-query a thread, computing each distance row on the fly. Its plain version
-(:func:`ratio_rows_plain`) is the JAX package's closed form of the same
-machine over the [Q, D] distance matrix:
+(:func:`ratio_rows`, ``csrc/ratio_match.cu``) computes that state machine,
+each distance row on the fly, on one of two routes chosen from the data as
+M1's are (``knn_cuda.int8_route``): int8-range integer rows (every ``.key``
+descriptor) take :func:`ratio_rows_int8`, the distances on the int8 tensor
+cores and the database cut into segments walked in parallel
+(:func:`ratio_rows_split_plain` is the plain form of that cut); other rows
+take :func:`ratio_rows_f32`, one query a thread on f32 chains. Its plain
+version (:func:`ratio_rows_plain`) is the JAX package's closed form of the
+same machine over the [Q, D] distance matrix:
 
   min1 = global minimum (earliest index on ties);
   min2 = min over the "displacement events" of the scan —
@@ -41,9 +46,10 @@ from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.kernels import cuda_lib
-from sift3d_torch.kernels.knn_cuda import dist_sqr_plain, sq_norms
+from sift3d_torch.kernels.knn_cuda import INT8_TILE, dist_sqr_plain, int8_route, sq_norms
 
 PLAIN_CHUNK = 1 << 22  # distances per chunk of the plain version's compatibility gather
+RATIO_SEGMENT = 16  # database rows a segment of the int8 kernel walks (ratio_match.cu kSeg)
 
 
 def compatible_features(xyz_a, scale_a, xyz_b, scale_b, log_thr: float, shift: float) -> torch.Tensor:
@@ -98,28 +104,128 @@ def ratio_rows_plain(q, db, xyz, scale, log_thr: float, shift: float):
     return torch.cat([i for i, _ in out]), torch.cat([r for _, r in out])
 
 
-def ratio_rows(q, db, xyz, scale, log_thr: float, shift: float):
-    """M2 (see ratio_rows_plain): the plain version for CPU tensors, the
-    kernel for CUDA tensors."""
-    if db.shape[0] < 2:
-        raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
-    if cuda_lib.route(q) == "plain":
-        return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
+def ratio_rows_split_plain(q, db, xyz, scale, log_thr: float, shift: float, seg_rows: int = RATIO_SEGMENT):
+    """ratio_rows_plain with the database cut as the int8 kernel cuts it:
+    segments of seg_rows rows; each segment's minimum (the earliest on
+    ties), an exclusive scan over the segments for the prefix minimum that
+    enters each, each segment's walk from that state (its rows' events: a
+    record displaces the state's distance, any other row offers its own;
+    row 1's counts always, a later row's when it is incompatible with the
+    state's row), then the smallest counted event of all segments. Keys
+    (distance bits << 32 | index) order like (distance, index), so a
+    minimum of keys is the earliest minimum. Equal to ratio_rows_plain."""
+    nq, nd = q.shape[0], db.shape[0]
+    if nd < 2 or seg_rows < 1:
+        raise ValueError(f"need >= 2 database rows and segments of >= 1 row, got {nd} and {seg_rows}")
+    none = torch.iinfo(torch.int64).max
+    nseg = -(-nd // seg_rows)
+    index = torch.arange(nd, device=q.device)
+    d = dist_sqr_plain(q, db, sq_norms(db))
+    # distances are >= +0, so their bits order like their values
+    key = (d.view(torch.int32).to(torch.int64) << 32) | index
+
+    def shift_in(x):  # x moved one place along its last axis, `none` first (torch's pad goes through a float)
+        return torch.cat([torch.full_like(x[..., :1], none), x[..., :-1]], dim=-1)
+
+    key = torch.cat([key, torch.full((nq, nseg * seg_rows - nd), none, device=q.device)], dim=1)
+    key = key.reshape(nq, nseg, seg_rows)
+    seg_min = key.amin(dim=2)
+    enter = torch.cummin(shift_in(seg_min), dim=1).values
+    # the state before each row: the entering state, then the segment's rows before it
+    before = torch.minimum(enter[..., None], shift_in(torch.cummin(key, dim=2).values)).reshape(nq, -1)[:, :nd]
+    key = key.reshape(nq, -1)[:, :nd]
+    record = key < before
+    partner = (before & 0xFFFFFFFF).clamp(max=nd - 1)  # row 0's state is none: no event there
+    state_d = (before >> 32).to(torch.int32).view(torch.float32)
+    val = torch.where(record, state_d, d)
+    counted = torch.zeros_like(record)
+    counted[:, 1] = True
+    if nd > 2:
+        counted[:, 2:] = ~compatible_features(xyz[None, 2:], scale[None, 2:], xyz[partner[:, 2:]],
+                                              scale[partner[:, 2:]], log_thr, shift)
+    d2 = torch.where(counted, val, torch.full_like(val, torch.inf)).amin(dim=1)
+    m = seg_min.amin(dim=1)
+    d1 = (m >> 32).to(torch.int32).view(torch.float32)
+    ratio = torch.where(d2 > 0, d1 / torch.where(d2 > 0, d2, torch.ones_like(d2)), torch.zeros_like(d2))
+    return m & 0xFFFFFFFF, ratio
+
+
+def _check(q, db, xyz, scale):
     nq, nd = q.shape[0], db.shape[0]
     for name, t, shape in (("q", q, (nq, 64)), ("db", db, (nd, 64)), ("xyz", xyz, (nd, 3)), ("scale", scale, (nd,))):
         cuda_lib.require_cuda(t, name, torch.float32, len(shape))
         if tuple(t.shape) != shape or t.device != q.device:
             raise ValueError(f"{name} must be {shape} on {q.device}, got {tuple(t.shape)} on {t.device}")
-    idx = torch.empty(nq, dtype=torch.int64, device=q.device)
-    ratio = torch.empty(nq, dtype=torch.float32, device=q.device)
-    if nq == 0:
-        return idx, ratio
-    cuda_lib.launch("sift3d_ratio_match", q, db, xyz, scale, idx, ratio, nq, nd, log_thr, shift, device=q.device)
-    cuda_lib.count_launch(ratio_rows)
+
+
+def _outputs(q):
+    return (torch.empty(q.shape[0], dtype=torch.int64, device=q.device),
+            torch.empty(q.shape[0], dtype=torch.float32, device=q.device))
+
+
+def ratio_rows_f32(q, db, xyz, scale, log_thr: float, shift: float):
+    """M2's f32 route (see ratio_rows_plain): the plain version for CPU
+    tensors, the f32 kernel for CUDA tensors, any rows."""
+    if db.shape[0] < 2:
+        raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
+    if cuda_lib.route(q) == "plain":
+        return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
+    _check(q, db, xyz, scale)
+    idx, ratio = _outputs(q)
+    if q.shape[0]:
+        cuda_lib.launch("sift3d_ratio_match", q, db, xyz, scale, idx, ratio, q.shape[0], db.shape[0], log_thr, shift,
+                        device=q.device)
+        cuda_lib.count_launch(ratio_rows_f32)
     return idx, ratio
 
 
-ratio_rows.launches = 0
+def ratio_rows_int8(q, db, xyz, scale, log_thr: float, shift: float):
+    """M2's int8 route (see ratio_rows_plain), for rows whose 64 columns
+    are integers in -128..127: raises ValueError for any others
+    (knn_cuda.int8_route, checked here). The plain version for CPU tensors;
+    for CUDA tensors M1's pre-pass and the int8 kernel, two launches, each
+    counted."""
+    if db.shape[0] < 2:
+        raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
+    if not int8_route(q, db):
+        raise ValueError("M2's int8 route takes rows whose 64 columns are integers in -128..127")
+    return _int8(q, db, xyz, scale, log_thr, shift)
+
+
+def _int8(q, db, xyz, scale, log_thr: float, shift: float):
+    """ratio_rows_int8 on rows int8_route has passed."""
+    if cuda_lib.route(q) == "plain":
+        return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
+    _check(q, db, xyz, scale)
+    idx, ratio = _outputs(q)
+    nq, nd = q.shape[0], db.shape[0]
+    if nq == 0:
+        return idx, ratio
+    npad = -(-nd // INT8_TILE) * INT8_TILE
+    db8 = torch.empty((npad, 16), dtype=torch.int32, device=q.device)
+    dn = torch.empty(npad, dtype=torch.float32, device=q.device)
+    cuda_lib.launch("sift3d_knn_prep_i8", db, db8, dn, None, nd, npad, 64, device=q.device)
+    cuda_lib.count_launch(ratio_rows_int8)
+    cuda_lib.launch("sift3d_ratio_match_i8", q, db8, dn, xyz, scale, idx, ratio, nq, nd, log_thr, shift,
+                    device=q.device)
+    cuda_lib.count_launch(ratio_rows_int8)
+    return idx, ratio
+
+
+def ratio_rows(q, db, xyz, scale, log_thr: float, shift: float):
+    """M2 (see ratio_rows_plain): the plain version for CPU tensors; for
+    CUDA tensors the int8 route where int8_route(q, db) holds, decided from
+    the data, else the f32 route."""
+    if db.shape[0] < 2:
+        raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
+    if cuda_lib.route(q) == "plain":
+        return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
+    route = _int8 if int8_route(q, db) else ratio_rows_f32  # each checks its arguments
+    return route(q, db, xyz, scale, log_thr, shift)
+
+
+ratio_rows_f32.launches = 0
+ratio_rows_int8.launches = 0
 
 
 @dataclasses.dataclass

@@ -24,8 +24,8 @@ On a CUDA device three kernels carry the stage, and their plain versions
 run on the CPU: the fused K2 (:func:`gather_eig`: refinement, identity
 patch, normalization, structure tensor, eigen test), the histogram top-k
 K3, and the fused K4 (``patch_cuda.rotated_goh`` and ``goh``: rotated
-patch and GoH descriptor). The BRIEF descriptors take K4's patches
-(``sample_rotated``) into eager code.
+patch and GoH descriptor; ``rotated_brief`` and ``brief`` for the BRIEF
+family).
 
 The stage also runs on a Z slab of an octave (the Z-sharded path,
 ``sift3d_torch.dist.spatial``): the Gaussian stack and the DoGs may each
@@ -46,7 +46,6 @@ from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.core.featureset import INFO_FLAG_MIN0MAX1, INFO_FLAG_REORIENT
 from sift3d_torch.core.numerics import fma_exact, sqrt
 from sift3d_torch.kernels import cuda_lib
-from sift3d_torch.kernels import descriptor as desc_kernels
 from sift3d_torch.kernels.extrema import quadratic_interp_1d
 from sift3d_torch.kernels.gauss import gaussian_kernel_1d
 from sift3d_torch.kernels.hist_cuda import hist_band, hist_topk
@@ -60,10 +59,11 @@ from sift3d_torch.kernels.patch import (
 )
 from sift3d_torch.kernels.patch_cuda import (
     _slab_args,
+    brief,
     goh,
+    rotated_brief,
     rotated_goh,
     sample_identity_plain,
-    sample_rotated,
 )
 
 
@@ -372,16 +372,15 @@ def reoriented_slots(ori_valid, cfg: SiftConfig):
     return nz[:, 0], nz[:, 1]
 
 
-def descriptor_stage(patches, variant: str = "goh", method: int = 2, blur_sigma: float = 0.95):
+def descriptor_stage(patches, variant: str = "goh", method: int = 2, blur_sigma: float = 0.95, out=None):
     """NormalizeData + descriptor + rank normalization (featExtract.cpp:477-499);
-    [C, 11, 11, 11] -> [C, 64] ranks 0..63 as uint8. variant: "goh" (the
-    default; the fused K4 on a CUDA tensor), or "brief", "rrief", "nrrief"
-    with pair table `method` and pre-blur `blur_sigma`."""
+    [C, 11, 11, 11] -> [C, 64] ranks 0..63 as uint8, into `out` when
+    given. variant: "goh" (the default), or "brief", "rrief", "nrrief" with
+    pair table `method` and pre-blur `blur_sigma`; the fused K4 (goh,
+    brief) on a CUDA tensor."""
     if variant == "goh":
-        return goh(patches.contiguous())
-    pn = normalize_patches(patches)
-    d = desc_kernels.brief_descriptor(pn, variant=variant, method=method, blur_sigma=blur_sigma)
-    return desc_kernels.rank_normalize(d).to(torch.uint8)
+        return goh(patches.contiguous(), out)
+    return brief(patches.contiguous(), variant, method, blur_sigma, out)
 
 
 def emit_octave(
@@ -437,15 +436,16 @@ def emit_candidates(
         glvl = vi * gstack.shape[1] + lvl
         gstack = gstack.flatten(0, 1)
     rows_r = (gstack, glvl[row].to(torch.int32), xyz[row], scale[row], ori_r.contiguous(), gz0, depth)
-    args = (descriptor, cfg.brief_method, cfg.brief_blur_sigma)
-    if descriptor != "goh":
-        with timer.stage("rotated_patches"):
-            patches_r = sample_rotated(*rows_r)
+    n_u = kidx.shape[0]
+    desc = torch.empty((n_u + row.shape[0], 64), dtype=torch.uint8, device=pn.device)
     with timer.stage("descriptors"):
-        desc_u = descriptor_stage(pn, *args)
-        # GoH: the fused K4 samples the rotated patches and describes them in one launch
-        desc_r = rotated_goh(*rows_r) if descriptor == "goh" else descriptor_stage(patches_r, *args)
-        desc = torch.cat([desc_u, desc_r])
+        # the unoriented rows, then the reoriented: the fused K4 samples the
+        # rotated patches and describes them in one launch
+        descriptor_stage(pn, descriptor, cfg.brief_method, cfg.brief_blur_sigma, out=desc[:n_u])
+        if descriptor == "goh":
+            rotated_goh(*rows_r, out=desc[n_u:])
+        else:
+            rotated_brief(*rows_r, descriptor, cfg.brief_method, cfg.brief_blur_sigma, out=desc[n_u:])
     info_u = torch.where(sign > 0, INFO_FLAG_MIN0MAX1, 0).to(torch.int64)
     order = kidx if rank is None else rank[kidx]
     rows = dict(

@@ -12,7 +12,9 @@
 - Every ported kernel has its CUDA source, the matching kernels (M1 kNN,
   M2 ratio test, M3 Hough scores and inlier masks) too.
 - On a CUDA card (marker `cuda`, skipped without one), every kernel equals
-  its plain version on the same tensors; the blur (K7) equals its plain
+  its plain version on the same tensors (M2 on both routes at its edge
+  shapes, the fused BRIEF kernels on edge rows and patches); the blur (K7)
+  equals its plain
   version run on the CPU (cuBLAS on the card sums in another order); the
   batched calls of batched extraction (K1 on [B, 6, Z, Y, X], the fused K2
   with a volume index, the fused K4 and K4's patch mode on the flattened
@@ -80,7 +82,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 @pytest.mark.parametrize(
     "source", ["dogs_extrema.cu", "hist_topk.cu", "sample_rotated.cu", "blur3d.cu", "identity_eig.cu",
-               "rotated_goh.cu"]
+               "rotated_goh.cu", "rotated_brief.cu"]
 )
 def test_cuda_sources_exist(source):
     text = (PACKAGE / "csrc" / source).read_text()
@@ -159,13 +161,15 @@ def _match_inputs(device):
         knn67=(*put(np.concatenate([q, geo[:25]], 1), np.concatenate([db, geo], 1)), 9),
         knn_f32=(*put(q * 0.37, db * 0.37), 5),
         ratio=(*put(q, db, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
+        ratio_f32=(*put(q * 0.37, db * 0.37, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
         hough=(*put(rots, hs, p0, p1, s0, s1, o0, o1), (1.0, 2.0, float(np.float32(0.7)))),
     )
 
 
 # launches a call of the wrappers that launch more than one kernel: M1's
-# int8 route runs its pre-pass and its main kernel (one slice at these sizes)
-LAUNCHES = {"knn_topk": 2, "knn_topk_geometry": 2}
+# int8 route runs its pre-pass and its main kernel (one slice at these
+# sizes), M2's int8 route M1's pre-pass and its own kernel
+LAUNCHES = {"knn_topk": 2, "knn_topk_geometry": 2, "ratio_rows": 2}
 
 
 def _calls(gs, lvl, centers, scales, oris, hist, band):
@@ -175,7 +179,8 @@ def _calls(gs, lvl, centers, scales, oris, hist, band):
         "knn_topk": (knn_cuda.knn_topk_int8, knn_cuda.knn_topk_plain, m["knn"]),
         "knn_topk_geometry": (knn_cuda.knn_topk_int8, knn_cuda.knn_topk_plain, m["knn67"]),
         "knn_topk_f32": (knn_cuda.knn_topk_f32, knn_cuda.knn_topk_plain, m["knn_f32"]),
-        "ratio_rows": (pairwise.ratio_rows, pairwise.ratio_rows_plain, m["ratio"]),
+        "ratio_rows": (pairwise.ratio_rows_int8, pairwise.ratio_rows_plain, m["ratio"]),
+        "ratio_rows_f32": (pairwise.ratio_rows_f32, pairwise.ratio_rows_plain, m["ratio_f32"]),
         "hough_scores": (hough.hough_scores, hough.hough_scores_plain, m["hough"]),
         "hough_scores_stacked": (hough.hough_scores, hough.hough_scores_plain, (*m["hough"], [0, 15, 15, 40])),
         "hough_inliers": (hough.hough_inliers, hough.hough_inliers_plain, (*m["hough"], [0, 15, 40], [3, 20])),
@@ -188,6 +193,9 @@ def _calls(gs, lvl, centers, scales, oris, hist, band):
             patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain, (gs, lvl, centers, scales, oris),
         ),
         "goh": (patch_cuda.goh, patch_cuda.goh_plain, (gs[:, :11, :11, :11].contiguous(),)),
+        **{f"rotated_{v}": (patch_cuda.rotated_brief, patch_cuda.rotated_brief_plain,
+                            (gs, lvl, centers, scales, oris, 0, None, v, 2)) for v in ("brief", "rrief", "nrrief")},
+        "brief": (patch_cuda.brief, patch_cuda.brief_plain, (gs[:, :11, :11, :11].contiguous(), "nrrief", 4)),
         "dogs_extrema": (extrema_cuda.dogs_extrema, extrema_cuda.dogs_extrema_plain, (gs,)),
         "sample_rotated": (
             patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain,
@@ -367,6 +375,7 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
     flat = batch.flatten(0, 1)
     glvl = (rvi * 6 + rlvl).to(torch.int32)
     for wrapper, plain in ((patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain),
+                           (patch_cuda.rotated_brief, patch_cuda.rotated_brief_plain),
                            (patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain)):
         before = wrapper.launches
         got = wrapper(flat, glvl, *rows)
@@ -396,6 +405,74 @@ def test_sharded_knn_and_solve_on_the_card(rng):
     want = solve_similarity(p, q, w, device="cuda:0")
     got = solve.solve_similarity_sharded(p, q, w, mesh)
     assert got[0] == want[0] and np.array_equal(got[1], want[1]) and np.array_equal(got[2], want[2])
+
+
+def _tie_rows(rng, n, d, device):
+    """M2's edge inputs: n queries against d database rows of a 3-letter
+    alphabet (distances tie heavily), a third of the database repeated, on
+    positions close enough that the partner changes inside a tile and many
+    events are compatible."""
+    db = rng.integers(0, 3, (d, 64)).astype(np.float32)
+    db[d // 3 : 2 * (d // 3)] = db[: d // 3]
+    q = np.concatenate([db[rng.integers(0, d, n // 2)], rng.integers(0, 3, (n - n // 2, 64))]).astype(np.float32)
+    xyz = rng.uniform(0, 4, (d, 3)).astype(np.float32)
+    scale = rng.uniform(2, 4, d).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (q, db, xyz, scale)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 127, 128, 129, 969, 9000])
+def test_ratio_match_routes_at_their_edges_on_the_card(d):
+    """M2 on both routes against its plain version on tie-heavy rows at D
+    in {2, 3, 127, 128, 129, 969} (tiles and halves cut mid-way) and 9000
+    (more rows than the int8 kernel keeps geometry for in shared memory);
+    the int8 route two launches a call, the f32 route one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(d)
+    q, db, xyz, scale = _tie_rows(rng, 300, d, torch.device("cuda:0"))
+    thr = float(np.float32(np.log(1.5)))
+    for wrapper, rows, launches in ((pairwise.ratio_rows_int8, (q, db), 2),
+                                    (pairwise.ratio_rows_f32, (q * 0.37, db * 0.37), 1)):
+        before = wrapper.launches
+        got = wrapper(*rows, xyz, scale, thr, 0.5)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + launches
+        assert _equal(got, pairwise.ratio_rows_plain(*rows, xyz, scale, thr, 0.5)), wrapper.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["brief", "rrief", "nrrief"])
+def test_fused_brief_at_its_edges_on_the_card(rng, variant):
+    """The fused BRIEF kernels against their plain versions: rows reaching
+    outside the volume in x, at scales above 8.80, on a NaN level (NaN
+    patches), from a Z slab, every pair table; given patches that are zero,
+    constant, mirrored (tied values) or NaN."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda:0")
+    gs = torch.from_numpy(rng.standard_normal((6, 40, 24, 28)).astype(np.float32)).to(dev)
+    gs[5] = float("nan")
+    n = 24
+    lvl = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32)).to(dev)
+    centers = torch.from_numpy(rng.uniform(-2, 30, (n, 3)).astype(np.float32)).to(dev)
+    centers[:, 2] = torch.from_numpy(rng.uniform(14, 26, n).astype(np.float32))
+    scales = torch.from_numpy(rng.uniform(1, 12, n).astype(np.float32)).to(dev)
+    q, _ = torch.linalg.qr(torch.from_numpy(rng.standard_normal((n, 3, 3)).astype(np.float32)))
+    oris = q.contiguous().to(dev)
+    patches = torch.from_numpy(rng.standard_normal((6, 11, 11, 11)).astype(np.float32)).to(dev)
+    patches[0] = 0.0
+    patches[1] = 2.0
+    patches[2] = (torch.arange(11, device=dev) - 5.0).abs()
+    patches[3] = float("nan")
+    for method in range(5):
+        for g, z0 in ((gs, 0), (gs[:, 8:34].contiguous(), 8)):
+            small = scales.clamp(max=2.0) if z0 else scales
+            args = (g, lvl, centers, small, oris, z0, 40, variant, method)
+            before = patch_cuda.rotated_brief.launches
+            assert _equal(patch_cuda.rotated_brief(*args), patch_cuda.rotated_brief_plain(*args)), (method, z0)
+            assert patch_cuda.rotated_brief.launches == before + 1
+        assert _equal(patch_cuda.brief(patches, variant, method), patch_cuda.brief_plain(patches, variant, method))
 
 
 def test_native_io_is_the_ports_own():

@@ -10,11 +10,19 @@ ratios. The database holds clusters of geometrically compatible
 near-copies, so every branch of the state machine fires
 (compatible-replace, incompatible-shuffle, second-slot displacement,
 init-pair retention); the test counts them in the oracle's walk.
+
+The int8 route's cut of the database (ratio_rows_split_plain: segments of
+16 rows, an exclusive scan of their minima, each walked from the state
+that enters it) equals the closed form and the JAX ratio_match on
+tie-heavy rows at D in {2, 3, 127, 128, 129, 969}, at the kernel's
+segment and at others; the route follows the data as M1's does.
 """
 
 import numpy as np
 import pytest
 import torch
+
+from sift3d_torch.kernels import knn_cuda
 
 from sift3d.core.config import SiftConfig as JxConfig
 from sift3d.core.featureset import FeatureSet as JxFeatureSet
@@ -152,3 +160,50 @@ def test_compatibility_rounds_through_f64(rng):
                                                   cfg.ratio_compat_log_scale, cfg.ratio_compat_shift)
     np.testing.assert_array_equal(got, want)
     assert 0.2 < got.mean() < 0.8
+
+
+def test_route_follows_the_data():
+    """.key-like rows (integers 0..127, as uint8 holds them) take the int8
+    route, float rows and a row holding 128 the f32 route; the int8
+    wrapper refuses the others."""
+    rng = np.random.default_rng(8)
+    ranks = torch.from_numpy(rng.permuted(np.tile(np.arange(64, dtype=np.uint8), (30, 1)), axis=1).astype(np.float32))
+    wide = torch.from_numpy(rng.integers(-128, 128, (30, 64)).astype(np.float32))
+    floats = ranks + 0.25
+    high = ranks.clone()
+    high[7, 3] = 128.0
+    assert knn_cuda.int8_route(ranks, ranks) and knn_cuda.int8_route(wide, ranks)
+    xyz, scale = torch.zeros(30, 3), torch.ones(30)
+    for q, db in ((floats, ranks), (ranks, floats), (high, ranks), (ranks, high)):
+        assert not knn_cuda.int8_route(q, db)
+        with pytest.raises(ValueError, match="int8 route"):
+            pairwise.ratio_rows_int8(q, db, xyz, scale, 0.4, 0.5)
+        want = pairwise.ratio_rows_plain(q, db, xyz, scale, 0.4, 0.5)
+        for got in (pairwise.ratio_rows_f32(q, db, xyz, scale, 0.4, 0.5),
+                    pairwise.ratio_rows(q, db, xyz, scale, 0.4, 0.5)):
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("nd", [2, 3, 127, 128, 129, 969])
+def test_split_plain_equals_jax_on_tied_rows(nd):
+    """Tie-heavy integer rows (a 3-letter alphabet, a third of the database
+    repeated, row 1 a copy of row 0 when D <= 5, positions close enough that many events are compatible):
+    ratio_rows_plain and ratio_rows_split_plain at the kernel's segment of
+    16 rows and at 1, 5 and 64 equal the JAX ratio_match bit for bit."""
+    rng = np.random.default_rng(nd)
+    db = _feats(nd, rng, rng.integers(0, 3, (nd, 64)).astype(np.float32))
+    k = max(1, nd // 3)
+    db.desc[k : 2 * k] = db.desc[:k]
+    db.xyz = rng.uniform(20, 24, (nd, 3)).astype(np.float32)
+    q = _feats(120, rng, np.concatenate([db.desc[rng.integers(0, nd, 60)],
+                                         rng.integers(0, 3, (60, 64)).astype(np.float32)]))
+    cfg = JxConfig()
+    want = jx_pairwise.ratio_match(_jx(q), _jx(db), cfg)
+    args = [torch.from_numpy(a) for a in (q.desc, db.desc, db.xyz, db.scale)]
+    args += [float(np.float32(cfg.ratio_compat_log_scale)), float(cfg.ratio_compat_shift)]
+    got = [pairwise.ratio_rows_plain(*args)] + [pairwise.ratio_rows_split_plain(*args, seg) for seg in (16, 1, 5, 64)]
+    d = jx_pairwise.dist_sqr_matrix(q.desc, db.desc)
+    assert (np.sort(d, axis=1)[:, 1:] == np.sort(d, axis=1)[:, :-1]).mean() > 0.5  # ties
+    for idx, ratio in got:
+        np.testing.assert_array_equal(idx.numpy(), want.db_idx)
+        np.testing.assert_array_equal(ratio.numpy().view(np.int32), want.ratio.view(np.int32))
