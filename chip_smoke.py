@@ -63,14 +63,15 @@ Phases, each printing one line:
      whose first volume (zeros) has no candidate, each exact against its
      plain version and against per-volume launches;
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
-     grid) on cuda:0: per-stage milliseconds, feature counts, and every
+     grid) on cuda:0: each span's host and stream milliseconds (the
+     tracer's record, which waits for nothing), feature counts, and every
      kernel's launch count in that run (each must be > 0); then K8's and
      K9's own path (they have no caller on the main path): their entry
      points smooth_histogram and smooth_histogram_peaks on T1's
      primary-histogram points, and the launches there; and K4's patch mode
      (no caller on a path since the BRIEF path is fused) through its entry
      point on the extraction's reoriented rows;
-  4. the same call without the timer (host wall of five calls) and once
+  4. the same call not recorded (host wall of five calls) and once
      under torch.profiler: device busy milliseconds, the trace's span, the
      idle share against both (the profiler slows the host, so the share
      against the unprofiled wall is the one a user sees), the launch calls
@@ -839,11 +840,13 @@ def device_profile(fn):
     """Run fn() once under torch.profiler; returns (device busy ms, span ms
     from the first device event's start to the last one's end, device
     events, runtime launch calls, {kernel name: [events, device ms]} in
-    descending ms, {stage: launch calls}, {stage: device ms}), or None when
-    the trace holds no device event. Stages are the profiler ranges
-    "stage:<name>" that StageMarks opens; a launch counts in the stage whose
-    range holds it, and a device event in the stage whose range on the
-    device (the trace's annotation of that range) holds its start."""
+    descending ms, {stage: [launch calls, stage calls]}, {stage: device
+    ms}), or None when the trace holds no device event. Stages are the
+    profiler ranges "stage:<name>" that the port's tracer
+    (``utils.timing``) opens under the profiler; a launch counts in every
+    stage whose range holds it, and a device event in every stage whose
+    range on the device (the trace's annotation of that range) holds its
+    start."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -870,7 +873,7 @@ def device_profile(fn):
     for e in events:
         if e.name.startswith("stage:") and e.device_type == torch.autograd.DeviceType.CPU:
             spans.setdefault(e.name[len("stage:"):], []).append((e.time_range.start, e.time_range.end))
-    per_stage = {name: sum(1 for t in launches if any(a <= t <= b for a, b in ranges))
+    per_stage = {name: [sum(1 for t in launches if any(a <= t <= b for a, b in ranges)), len(ranges)]
                  for name, ranges in spans.items()}
     marks = {}
     for e in events:
@@ -1252,11 +1255,10 @@ def cli_full_width(vol_np, wrappers, tmp: str):
 
     vol = torch.from_numpy(vol_np).cuda()
     for descriptor in ("goh", *BRIEF_FLAGS.values()):
-        marks = stage_marks()
-        prof = device_profile(lambda: extract_features(vol, DEFAULT_CONFIG, timer=marks, descriptor=descriptor))
+        prof = device_profile(lambda: extract_features(vol, DEFAULT_CONFIG, descriptor=descriptor))
         got = "not measured (no device events)" if prof is None else (
-            f"{prof[5].get('descriptors')} launch calls in {marks.counts['descriptors']} calls, "
-            f"{prof[6].get('descriptors')!r} device ms")
+            "{} launch calls in {} calls, ".format(*prof[5]["descriptors"])
+            + f"{prof[6].get('descriptors')!r} device ms")
         print(f"phase7 extract_features {descriptor}: the descriptors stage {got}")
     return rows_of, launches
 
@@ -1850,12 +1852,14 @@ def match_wrappers():
 
 
 def launch_timer(wrappers):
-    """A StageTimer that also counts each wrapper's launches in each stage."""
-    from sift3d_torch.utils.timing import StageTimer
+    """A tracer (``utils.timing.Tracer``; record inside its ``record()``)
+    that also counts each wrapper's launches in each stage; milliseconds()
+    gives each stage's host ms."""
+    from sift3d_torch.utils.timing import Tracer
 
-    class LaunchTimer(StageTimer):
+    class LaunchTimer(Tracer):
         def __init__(self):
-            super().__init__(enabled=True)
+            super().__init__()
             self.launches = {}
 
         @contextlib.contextmanager
@@ -1866,6 +1870,9 @@ def launch_timer(wrappers):
             got = self.launches.setdefault(name, dict.fromkeys(wrappers, 0))
             for k, w in wrappers.items():
                 got[k] += w.launches - before[k]
+
+        def milliseconds(self):
+            return {name: t.host_ms for name, t in self.totals().items()}
 
     return LaunchTimer()
 
@@ -1920,7 +1927,7 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         timer = launch_timer(wrappers)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
+        with contextlib.redirect_stdout(io.StringIO()), timer.record():
             # the CLI's default device is the card; another device is a rehearsal's
             rc = featmatch.main([*flags, *names], timer=timer, device=None if dev.type == "cuda" else dev)
         torch.cuda.synchronize()
@@ -1958,7 +1965,7 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         plain_same = outputs() == native_files
         votes = np.loadtxt("matching_votes.txt", skiprows=1, max_rows=32)
         with contextlib.redirect_stdout(io.StringIO()):
-            prof = device_profile(lambda: featmatch.main(["--all-to-all", "--refine", *names], timer=stage_marks(),
+            prof = device_profile(lambda: featmatch.main(["--all-to-all", "--refine", *names],
                                                          device=None if dev.type == "cuda" else dev))
     finally:
         os.chdir(here)
@@ -2178,15 +2185,14 @@ def batched_runs(base, cfg):
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = statistics.median(walls)
-        marks = stage_marks()
-        prof = device_profile(lambda: call(batch, timer=marks))
+        prof = device_profile(lambda: call(batch))
         if prof is None:
             traced = "device time not measured (no device events)"
         else:
             busy, _, _, n_launch, _, per_stage, _ = prof
             traced = (f"device busy {busy!r} ms ({busy / nb!r} a volume), {n_launch} launch calls "
                       f"({n_launch / nb!r} a volume; [launch calls, stage calls] by stage "
-                      f"{json.dumps({k: [v, marks.counts[k]] for k, v in per_stage.items()})}), idle share "
+                      f"{json.dumps(per_stage)}), idle share "
                       f"{1 - busy / wall!r} of the median wall")
         print(f"phase12 extract_features_many B {nb} on {dev}: {sum(len(g) for g in got)} features; equal to "
               f"extract_features on each volume alone {all(same)}; wall_ms {walls!r} (median {wall!r}, "
@@ -2339,7 +2345,7 @@ def shard_match_run(keys_dir: str, names, snapshot, dev, tmp: str) -> None:
         timer = launch_timer(wrappers)
         os.chdir(work)
         try:
-            with contextlib.redirect_stdout(io.StringIO()):
+            with contextlib.redirect_stdout(io.StringIO()), timer.record():
                 # the CLI's default device is the card; another device is a rehearsal's
                 rc = featmatch.main(["--all-to-all", "--shard-match", *names], timer=timer, mesh=mesh,
                                     device=None if dev.type == "cuda" else dev)
@@ -2488,24 +2494,6 @@ def sample_rotated_entry(vol, feats, cfg) -> int:
     return n
 
 
-def stage_marks():
-    """A timer for extract_features that opens a torch.profiler range
-    "stage:<name>" around each stage, without synchronizing, and counts the
-    stage's calls (device_profile counts the launches in each range)."""
-    import torch
-
-    from sift3d_torch.utils.timing import StageTimer
-
-    class StageMarks(StageTimer):
-        @contextlib.contextmanager
-        def stage(self, name: str):
-            self.counts[name] += 1
-            with torch.profiler.record_function(f"stage:{name}"):
-                yield
-
-    return StageMarks(enabled=False)
-
-
 def main() -> int:
     import numpy as np
     import torch
@@ -2524,7 +2512,7 @@ def main() -> int:
     from sift3d_torch.utils.synthetic import (
         repeatability, synthetic_blob_texture, synthetic_volume,
     )
-    from sift3d_torch.utils.timing import StageTimer
+    from sift3d_torch.utils.timing import TRACER
 
     card = card_line()
     dev = resolve_device("cuda:0")
@@ -2567,20 +2555,21 @@ def main() -> int:
 
     wrappers = extraction_wrappers()
     extract_features(vol, cfg, device=dev)  # warm-up (cuBLAS handles, caches)
-    timer = StageTimer(enabled=True)
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    feats = extract_features(vol, cfg, device=dev, timer=timer)
+    with TRACER.record(dev):
+        feats = extract_features(vol, cfg, device=dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = {name: w.launches for name, w in wrappers.items()}
     n_reor = int(feats.is_reoriented.sum())
-    stages = {k: round(v, 3) for k, v in timer.milliseconds().items()}
+    # [host ms, stream ms] of each span (the tracer waits for nothing)
+    stages = {k: [round(t.host_ms, 3), round(t.stream_ms, 3)] for k, t in TRACER.totals().items()}
     print(
         f"phase3 extract_features {FULL_DIMS} on {dev}: {len(feats)} features "
         f"({len(feats) - n_reor} unoriented, {n_reor} reoriented); wall {wall_ms!r} ms; "
-        f"stages_ms {json.dumps(stages)}; launches {json.dumps(launches)}"
+        f"spans [host ms, stream ms] {json.dumps(stages)}; launches {json.dumps(launches)}"
     )
     if len(feats) == 0 or min(launches.values()) <= 0:
         raise AssertionError(f"main path did not run every kernel: {launches}, {len(feats)} features")
@@ -2626,8 +2615,7 @@ def main() -> int:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    marks = stage_marks()
-    prof = device_profile(lambda: extract_features(vol, cfg, device=dev, timer=marks))
+    prof = device_profile(lambda: extract_features(vol, cfg, device=dev))
     if prof is None:
         print(f"phase4 wall_ms {walls!r} (median {wall!r}); device time not measured (no device events)")
     else:
@@ -2637,7 +2625,7 @@ def main() -> int:
             # K7 launches blur_xy_kernel and blur_col_kernel, or blur3d_small_kernel
             hits = [v for k, v in per_name.items() if any(tag in k for tag in TRACE_NAMES.get(name, (f"::{name}_kernel",)))]
             ours[name] = [sum(n for n, _ in hits), round(sum(ms for _, ms in hits), 4)]
-        stage_launches = {k: [v, marks.counts[k]] for k, v in per_stage.items()}
+        stage_launches = per_stage
         top = {name: [n, round(ms, 4)] for name, (n, ms) in list(per_name.items())[:10]}
         k7 = {}  # K7's kernels by template instance
         for k, (n, ms) in per_name.items():

@@ -21,7 +21,10 @@ Usage:
              large for one card
       --spatial-octaves=K : shard the first K octaves (default: those
              whose working set exceeds 2 GiB)
-      --time : print per-stage timing summary
+      --time : record the extraction's spans and print, per span, its
+             calls, host ms, self ms (less the spans inside it) and
+             stream ms (between CUDA events on the card's stream); no
+             span waits for the card
 
 Every flag of ``sift3d.cli.featextract``, step for step and with the same
 comment headers, so the two .key files can be compared line by line (they
@@ -31,6 +34,7 @@ ROADMAP.md, Queue 3).
 
 from __future__ import annotations
 
+import contextlib
 import sys
 
 import numpy as np
@@ -44,7 +48,7 @@ from sift3d_torch.io import keyfile, nifti
 from sift3d_torch.kernels.resample import double_size, isotropic_resample, subsample_2x
 from sift3d_torch.pipeline.extract import extract_features
 from sift3d_torch.utils.pgm import write_volume_slice
-from sift3d_torch.utils.timing import StageTimer
+from sift3d_torch.utils.timing import TRACER
 
 DESCRIPTOR_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 
@@ -170,17 +174,17 @@ def main(argv=None, device=None) -> int:
         def on_gstack(octave, gstack):
             write_volume_slice(f"image_o{octave}.pgm", gstack[1])
 
-    timer = StageTimer(enabled=show_time)
-    if mesh is not None:
-        feats = extract_features_spatial(
-            data, mesh, cfg, sharded_octaves=spatial_octaves, timer=timer,
-            initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
-        )
-    else:
-        feats = extract_features(
-            data, cfg, device=dev, timer=timer,
-            initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
-        )
+    with TRACER.record(dev) if show_time else contextlib.nullcontext():
+        if mesh is not None:
+            feats = extract_features_spatial(
+                data, mesh, cfg, sharded_octaves=spatial_octaves, timer=TRACER,
+                initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
+            )
+        else:
+            feats = extract_features(
+                data, cfg, device=dev, timer=TRACER,
+                initial_image_scale=initial_scale, descriptor=descriptor, on_gstack=on_gstack,
+            )
 
     # size factor for -2 options (featExtract.cpp:422-427, 502-505)
     size_factor = {1: 0.5, -1: 2.0}.get(double_image, 1.0)
@@ -207,7 +211,7 @@ def main(argv=None, device=None) -> int:
         )
     n = keyfile.write_text(feats, out_path, eig_threshold=cfg.eig_threshold, comments=comments)
     if show_time:
-        print(timer.summary())
+        print(TRACER.summary())
     print(f"\nFeatures: {n}")
     print("\nDone.")
     return 0

@@ -43,7 +43,7 @@ from sift3d_torch.io import keyfile, native
 from sift3d_torch.match import groupvote
 from sift3d_torch.match.pairwise import match_keys_stacked, ratio_match_stacked
 from sift3d_torch.utils.textfile import read_lines
-from sift3d_torch.utils.timing import StageTimer
+from sift3d_torch.utils.timing import TRACER
 
 
 def match_all_to_one(names, feature_sets, out_report="report.txt", cfg=DEFAULT_CONFIG, refine=False,
@@ -56,7 +56,7 @@ def match_all_to_one(names, feature_sets, out_report="report.txt", cfg=DEFAULT_C
     one of its inlier masks (``pairwise.match_keys_stacked``); then each
     pair's files are written in order."""
     dev = resolve_device(device)
-    timer = timer or StageTimer(enabled=False)
+    timer = timer or TRACER
     f1 = feature_sets[0]
     with timer.stage("ratio_match"):
         stacked = ratio_match_stacked(feature_sets[1:], f1, cfg, dev)
@@ -96,7 +96,7 @@ def write_pair_files(name1, name, f1, f2, res, out_report, timer=None):
     write_matches), the transform and its inverse, the report line
     (appended) and the query set as ``{name}.update.key`` through the
     native writer (write_key)."""
-    timer = timer or StageTimer(enabled=False)
+    timer = timer or TRACER
     ts = res.transform
     inl = np.nonzero(res.inlier)[0]
     i1, i2 = res.input_idx[inl], res.model_idx[inl]
@@ -124,10 +124,11 @@ def main(argv=None, device=None, timer=None, mesh=None) -> int:
     """Run the CLI. device: where to match; None means cuda:<N> from -d<N>
     (cuda:0 without it), and raises when there is no CUDA card. Passing a
     device (such as "cpu", the kernels' plain versions) is for callers that
-    hold the port against another implementation. timer: an optional
-    StageTimer for the stages read, ratio_match, hough, write (the
-    per-pair output files; within it write_key, the .update.key files, and
-    write_matches, the match files) and group_vote. mesh: the devices
+    hold the port against another implementation. timer: what opens the
+    spans read, ratio_match, hough, write (the per-pair output files;
+    within it write_key, the .update.key files, and write_matches, the
+    match files) and group_vote (``utils.timing``; None: the process's
+    tracer, which also opens the spans inside them). mesh: the devices
     --shard-match shards over; None means every CUDA card (with
     device="cpu": the CPU alone)."""
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -202,7 +203,7 @@ def main(argv=None, device=None, timer=None, mesh=None) -> int:
             )
         device = f"cuda:{index}"
     dev = resolve_device(device)
-    timer = timer or StageTimer(enabled=False)
+    timer = timer or TRACER
 
     names = read_lines(file_list) if file_list else argv[i:]
     labels = list(range(len(names)))

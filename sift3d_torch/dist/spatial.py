@@ -42,7 +42,7 @@ from sift3d_torch.kernels.extrema_cuda import extrema_mask
 from sift3d_torch.kernels.resample import subsample_2x
 from sift3d_torch.pipeline import features, pyramid
 from sift3d_torch.pipeline.extract import extract_features, extract_octaves, octave_features
-from sift3d_torch.utils.timing import StageTimer
+from sift3d_torch.utils.timing import TRACER, Tracer
 
 WORKING_SET_LIMIT = 2 * 1024**3  # bytes of an octave's 11 f32 volumes that shard it
 
@@ -116,7 +116,7 @@ def sampling_halo(cfg: SiftConfig) -> int:
 
 
 def emit_octave_spatial(
-    octv: ShardedOctave, cfg: SiftConfig, true_z: int, timer: StageTimer, descriptor: str = "goh",
+    octv: ShardedOctave, cfg: SiftConfig, true_z: int, timer: Tracer, descriptor: str = "goh",
 ) -> Optional[dict]:
     """Every feature row of a Z-sharded octave, as numpy arrays in global
     octave geometry, in reference push order (``spatial.
@@ -179,7 +179,7 @@ def sharded_octave_count(shape, cfg: SiftConfig, sharded_octaves: Optional[int] 
 def extract_features_spatial(
     img, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG, *,
     sharded_octaves: Optional[int] = None, initial_image_scale: float = 1.0,
-    descriptor: str = "goh", timer: Optional[StageTimer] = None,
+    descriptor: str = "goh", timer: Optional[Tracer] = None,
     on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> FeatureSet:
     """Extract features from a [Z, Y, X] volume (numpy array or tensor)
@@ -195,7 +195,7 @@ def extract_features_spatial(
     """
     mesh = make_mesh() if mesh is None else [torch.device(d) for d in mesh]
     mesh = [resolve_device(d) for d in mesh]
-    timer = timer or StageTimer(enabled=False)
+    timer = timer or TRACER
     if not isinstance(img, torch.Tensor):
         img = torch.from_numpy(np.array(img, np.float32))
     vol = img.to(torch.float32)

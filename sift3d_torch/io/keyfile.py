@@ -34,6 +34,7 @@ import numpy as np
 
 from sift3d_torch.core.featureset import DESCRIPTOR_SIZE, FeatureSet
 from sift3d_torch.io import native
+from sift3d_torch.utils.timing import TRACER
 
 HEADER_LINE = "# featExtract 1.1"
 LEGEND_LINE = (
@@ -160,7 +161,7 @@ def read_text(path: str, eig_threshold: float = -1.0, use_native: bool = True) -
     applied after reading (featMatchMultiple.cpp:596 passes 140 -- note the
     reference reader accepts it but applies no filter; we apply it to honor
     the intent; pass -1 for raw reads). use_native=False reads the same rows
-    in Python.
+    in Python. The rows' parse is the span key_rows (``utils.timing.TRACER``).
     """
     comments: List[str] = []
     with open(path, "rt") as f:
@@ -174,7 +175,8 @@ def read_text(path: str, eig_threshold: float = -1.0, use_native: bool = True) -
         legend = f.readline()
         if "Scale-space location[x y z scale]" not in legend:
             raise ValueError(f"{path}: missing legend line")
-        feats = native.read_key_text(path) if use_native else _read_rows_plain(f, n)
+        with TRACER.stage("key_rows"):
+            feats = native.read_key_text(path) if use_native else _read_rows_plain(f, n)
     if eig_threshold >= 0:
         feats = feats.apply_eig_threshold(eig_threshold)
     return feats, comments

@@ -40,6 +40,7 @@ from sift3d_torch.core.numerics import fma_exact
 from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.kernels import cuda_lib
+from sift3d_torch.utils.timing import TRACER
 
 PLAIN_CHUNK = 1 << 20  # hypothesis-match pairs per chunk of the plain scorer
 HOUGH_THREADS = 128  # hypotheses (scores) or matches (inliers) a block of M3 (hough_scores.cu kThreads)
@@ -246,26 +247,33 @@ def hough_similarity_stacked(pairs, cfg: SiftConfig = DEFAULT_CONFIG, device=Non
     bits as alone), ONE launch of M3's scores over every pair, each pair's
     first maximum from one copy to the host, ONE launch of its inlier masks.
     Returns a hough_similarity dict per pair. device: None means the card
-    (raises without one); "cpu" runs M3's plain versions."""
+    (raises without one); "cpu" runs M3's plain versions. Spans
+    (``utils.timing.TRACER``): hough_hypotheses (the stacking and
+    :func:`hypotheses`), hough_vote (the uploads, M3 and its copies, the
+    maxima)."""
     if not pairs:
         return []
     dev = resolve_device(device, like=pairs[0][0])
     shapes = ((3,), (3,), (), (), (3, 3), (3, 3))
-    host = [torch.cat([torch.as_tensor(p[f], dtype=torch.float32, device="cpu").reshape(-1, *shape) for p in pairs])
-            for f, shape in enumerate(shapes)]
-    # the hypotheses on the host (a few hundred small ops over the M rows),
-    # the same for every device
-    rots, scales = hypotheses(*host[2:])
-    pts0, pts1, s0, s1, o0, o1 = (t.to(dev).contiguous() for t in host)
-    thresholds = tuple(
-        float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien)
-    )
-    offsets = segment_offsets([len(p[0]) for p in pairs])
-    args = (rots.to(dev).contiguous(), scales.to(dev).contiguous(), pts0, pts1, s0, s1, o0, o1, thresholds, offsets)
-    scores = hough_scores(*args).cpu().numpy()
-    bounds = list(zip(offsets[:-1].tolist(), offsets[1:].tolist()))
-    winners = [lo + int(np.argmax(scores[lo:hi])) for lo, hi in bounds]  # the first maxima
-    inliers = hough_inliers(*args, winners).cpu().numpy()
+    with TRACER.stage("hough_hypotheses"):
+        host = [torch.cat([torch.as_tensor(p[f], dtype=torch.float32, device="cpu").reshape(-1, *shape)
+                           for p in pairs])
+                for f, shape in enumerate(shapes)]
+        # the hypotheses on the host (a few hundred small ops over the M rows),
+        # the same for every device
+        rots, scales = hypotheses(*host[2:])
+    with TRACER.stage("hough_vote"):
+        pts0, pts1, s0, s1, o0, o1 = (t.to(dev).contiguous() for t in host)
+        thresholds = tuple(
+            float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien)
+        )
+        offsets = segment_offsets([len(p[0]) for p in pairs])
+        args = (rots.to(dev).contiguous(), scales.to(dev).contiguous(), pts0, pts1, s0, s1, o0, o1, thresholds,
+                offsets)
+        scores = hough_scores(*args).cpu().numpy()
+        bounds = list(zip(offsets[:-1].tolist(), offsets[1:].tolist()))
+        winners = [lo + int(np.argmax(scores[lo:hi])) for lo, hi in bounds]  # the first maxima
+        inliers = hough_inliers(*args, winners).cpu().numpy()
     return [
         dict(hypothesis=w - lo, rot=rots[w].numpy().astype(np.float64), scale=float(scales[w]),
              inliers=inliers[lo:hi], score=float(scores[w]))

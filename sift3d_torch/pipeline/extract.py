@@ -35,7 +35,7 @@ from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.pipeline import features, pyramid
-from sift3d_torch.utils.timing import StageTimer
+from sift3d_torch.utils.timing import TRACER, Tracer
 
 
 def _volume(img, dev: torch.device) -> torch.Tensor:
@@ -50,7 +50,7 @@ def _volume(img, dev: torch.device) -> torch.Tensor:
 
 
 def _batch_octaves(
-    batch: torch.Tensor, cfg: SiftConfig, timer: StageTimer, initial_image_scale: float,
+    batch: torch.Tensor, cfg: SiftConfig, timer: Tracer, initial_image_scale: float,
     descriptor: str, on_gstack: Optional[Callable[[int, torch.Tensor], None]], pre_blurred: bool,
 ) -> Iterator[Tuple[int, dict]]:
     """The body of every entry point: a [B, Z, Y, X] batch of same-shape
@@ -58,7 +58,8 @@ def _batch_octaves(
     Yields (octave, rows) for every octave that emits features; rows is
     ``features.emit_octave``'s dict (octave-local geometry, column vi),
     sorted by volume, then reference push order. on_gstack(octave, gstack)
-    gets each octave's [B, 6, Z, Y, X] stack."""
+    gets each octave's [B, 6, Z, Y, X] stack. Every span closes before a
+    yield."""
     sigmas = tuple(cfg.level_sigmas())
     if pre_blurred:
         base = batch
@@ -66,21 +67,26 @@ def _batch_octaves(
         with timer.stage("initial_blur"):
             base = pyramid.initial_blur_core(batch, cfg, initial_image_scale)
     for octave in range(pyramid.num_octaves(tuple(batch.shape[1:]), cfg)):
-        with timer.stage("pyramid"):
-            gstack, dogs, mask, base = pyramid.octave_core(base, cfg)
-        if on_gstack is not None:
-            on_gstack(octave, gstack)
-        rows = features.emit_octave(gstack, dogs, mask, cfg, sigmas, timer, descriptor)
-        del gstack, dogs, mask
-        if rows is None:
-            continue
-        order = torch.argsort(rows["key"], stable=True)
-        order = order[torch.argsort(rows["vi"][order], stable=True)]
-        yield octave, {k: v[order] for k, v in rows.items()}
+        # the span "octave" holds the octave's stages and the steps between
+        # them (the feature stage's row gathers and row assembly)
+        with timer.stage("octave"):
+            with timer.stage("pyramid"):
+                gstack, dogs, mask, base = pyramid.octave_core(base, cfg)
+            if on_gstack is not None:
+                on_gstack(octave, gstack)
+            rows = features.emit_octave(gstack, dogs, mask, cfg, sigmas, timer, descriptor)
+            del gstack, dogs, mask
+            if rows is None:
+                continue
+            with timer.stage("emit"):
+                order = torch.argsort(rows["key"], stable=True)
+                order = order[torch.argsort(rows["vi"][order], stable=True)]
+                rows = {k: v[order] for k, v in rows.items()}
+        yield octave, rows
 
 
 def extract_octaves(
-    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh",
     on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None, pre_blurred: bool = False,
 ) -> Iterator[Tuple[int, dict]]:
@@ -91,18 +97,20 @@ def extract_octaves(
     descriptor and on_gstack as in :func:`extract_features`; pre_blurred:
     img is already an octave base (the tail octaves of the Z-sharded path),
     so the initial blur is skipped."""
-    vol = _volume(img, resolve_device(device, like=img))
+    timer = timer or TRACER
+    dev = resolve_device(device, like=img)
+    with timer.stage("input"):
+        vol = _volume(img, dev)
     hook = None if on_gstack is None else (lambda octave, gstack: on_gstack(octave, gstack[0]))
     for octave, rows in _batch_octaves(
-        vol[None], cfg, timer or StageTimer(enabled=False), initial_image_scale, descriptor, hook,
-        pre_blurred,
+        vol[None], cfg, timer, initial_image_scale, descriptor, hook, pre_blurred,
     ):
         del rows["vi"]
         yield octave, rows
 
 
 def extract_features(
-    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh",
     on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> FeatureSet:
@@ -112,6 +120,8 @@ def extract_features(
     device: where to run (a CUDA device runs the hand-written kernels, the
     CPU their plain versions); None means the card (a CUDA tensor's own
     device, else the current CUDA device) and raises without one.
+    timer: what opens the spans (``utils.timing``; None: the process's
+    tracer).
     initial_image_scale: 0.5 for an image the CLI doubled (-2+), whose
     initial blur then assumes sigma_init / 0.5.
     descriptor: "goh" (default), "brief", "rrief" or "nrrief". on_gstack:
@@ -120,18 +130,20 @@ def extract_features(
     features in voxel coordinates of the input volume, ordered as the JAX
     package orders them.
     """
-    parts = [
-        octave_features(rows, octave)
-        for octave, rows in extract_octaves(
-            img, cfg, device, timer,
-            initial_image_scale=initial_image_scale, descriptor=descriptor, on_gstack=on_gstack,
-        )
-    ]
-    return FeatureSet.concatenate(parts)
+    timer = timer or TRACER
+    parts = []
+    for octave, rows in extract_octaves(
+        img, cfg, device, timer,
+        initial_image_scale=initial_image_scale, descriptor=descriptor, on_gstack=on_gstack,
+    ):
+        with timer.stage("emit"):
+            parts.append(octave_features(rows, octave))
+    with timer.stage("emit"):
+        return FeatureSet.concatenate(parts)
 
 
 def extract_features_many(
-    imgs: Sequence, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[StageTimer] = None,
+    imgs: Sequence, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh", pre_blurred: bool = False,
 ) -> List[FeatureSet]:
     """Extract features from several [Z, Y, X] volumes (numpy arrays or
@@ -149,26 +161,30 @@ def extract_features_many(
     result.
     """
     dev = resolve_device(device, like=imgs[0] if len(imgs) else None)
-    timer = timer or StageTimer(enabled=False)
-    vols = [_volume(img, dev) for img in imgs]
+    timer = timer or TRACER
+    with timer.stage("input"):
+        vols = [_volume(img, dev) for img in imgs]
     groups: dict = {}
     for i, vol in enumerate(vols):
         groups.setdefault(tuple(vol.shape), []).append(i)
     parts = [[] for _ in vols]
     for vol_ids in groups.values():
-        batch = torch.stack([vols[i] for i in vol_ids])
+        with timer.stage("input"):
+            batch = torch.stack([vols[i] for i in vol_ids])
         for octave, rows in _batch_octaves(
             batch, cfg, timer, initial_image_scale, descriptor, None, pre_blurred
         ):
-            host = {k: v.cpu().numpy() for k, v in rows.items()}
-            # rows are sorted by volume: volume b's are one run
-            bounds = np.searchsorted(host["vi"], np.arange(len(vol_ids) + 1))
-            for b, vol_i in enumerate(vol_ids):
-                lo, hi = bounds[b], bounds[b + 1]
-                if hi > lo:
-                    parts[vol_i].append(octave_features({k: v[lo:hi] for k, v in host.items()}, octave))
+            with timer.stage("emit"):
+                host = {k: v.cpu().numpy() for k, v in rows.items()}
+                # rows are sorted by volume: volume b's are one run
+                bounds = np.searchsorted(host["vi"], np.arange(len(vol_ids) + 1))
+                for b, vol_i in enumerate(vol_ids):
+                    lo, hi = bounds[b], bounds[b + 1]
+                    if hi > lo:
+                        parts[vol_i].append(octave_features({k: v[lo:hi] for k, v in host.items()}, octave))
         del batch
-    return [FeatureSet.concatenate(p) for p in parts]
+    with timer.stage("emit"):
+        return [FeatureSet.concatenate(p) for p in parts]
 
 
 def octave_features(rows: dict, octave: int) -> FeatureSet:
