@@ -16,9 +16,18 @@ together as one [B, Z, Y, X] batch:
 
 so the launches and host syncs of an octave are paid once per shape group,
 not once per volume, and every volume's rows equal its rows alone, bit for
-bit. Every count is exact, so no capacity buckets, chunk programs or streams
-are needed (the JAX package's exist for XLA's static shapes and a remote
-TPU runtime; its ``streams`` option changes no result and is not ported).
+bit. Inputs are grouped by their host shapes before any upload; each group's
+batch is allocated once on the device, and a host volume bound for a card
+(a numpy array or a CPU tensor) travels through the device's pinned staging
+ring (``pipeline/staging.py``) straight into its place in the batch: one
+host pass casts it to f32 chunk by chunk, and every transfer is an
+asynchronous copy from pinned memory that overlaps the next chunk's host
+pass. A tensor already on a card, and every input on the CPU, is converted
+as it always was (``_volume``) and written into the batch (a single
+volume's batch of one is a view of it). Every count is
+exact, so no capacity buckets, chunk programs or streams are needed (the
+JAX package's exist for XLA's static shapes and a remote TPU runtime; its
+``streams`` option changes no result and is not ported).
 The entry points run on the card unless the caller passes device="cpu". A
 volume too large for one card goes through
 ``sift3d_torch.dist.spatial.extract_features_spatial``.
@@ -34,19 +43,57 @@ import torch
 from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.core.featureset import FeatureSet
-from sift3d_torch.pipeline import features, pyramid
+from sift3d_torch.pipeline import features, pyramid, staging
 from sift3d_torch.utils.timing import TRACER, Tracer
 
 
+def _shape(img) -> tuple:
+    """img's host shape, which has to be [Z, Y, X]."""
+    shape = tuple(np.shape(img))
+    if len(shape) != 3:
+        raise ValueError(f"expected a [Z, Y, X] volume, got shape {shape}")
+    return shape
+
+
+def _staged(img, dev: torch.device) -> bool:
+    """Whether img reaches dev through the staging ring: a host array or a
+    CPU tensor bound for a card."""
+    return dev.type == "cuda" and not (isinstance(img, torch.Tensor) and img.device.type != "cpu")
+
+
 def _volume(img, dev: torch.device) -> torch.Tensor:
-    """img (numpy array or tensor) as a contiguous f32 [Z, Y, X] tensor on dev."""
+    """img (numpy array or tensor) as a contiguous f32 [Z, Y, X] tensor on
+    dev, by a host copy and a plain upload: the path of inputs that bypass
+    the staging ring."""
     if not isinstance(img, torch.Tensor):
         # a copy: the NIfTI reader's arrays are read-only
         img = torch.from_numpy(np.array(img, np.float32))
-    vol = img.to(device=dev, dtype=torch.float32).contiguous()
-    if vol.ndim != 3:
-        raise ValueError(f"expected a [Z, Y, X] volume, got shape {tuple(vol.shape)}")
-    return vol
+    return img.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def _batch(imgs: Sequence, shape: tuple, dev: torch.device) -> torch.Tensor:
+    """The volumes imgs, all of the [Z, Y, X] shape `shape`, as one f32
+    [B, Z, Y, X] tensor on dev, allocated once: volume b is staged into
+    batch[b] through the device's ring (the host copies of a batch of
+    several on torch's threads, of a single volume on this thread alone:
+    ``pipeline/staging.py``), or, bypassing it, converted by ``_volume``
+    and copied there."""
+    batch = torch.empty((len(imgs),) + shape, dtype=torch.float32, device=dev)
+    for b, img in enumerate(imgs):
+        if _staged(img, dev):
+            staging.ring(dev).stage(img, batch[b], parallel=len(imgs) > 1)
+        else:
+            batch[b] = _volume(img, dev)
+    return batch
+
+
+def device_volume(img, device) -> torch.Tensor:
+    """img (a [Z, Y, X] numpy array or tensor) as a contiguous f32 tensor on
+    device: a host volume bound for a card through the device's staging
+    ring, any other input by ``_volume``."""
+    dev = torch.device(device)
+    shape = _shape(img)
+    return _batch([img], shape, dev)[0] if _staged(img, dev) else _volume(img, dev)
 
 
 def _batch_octaves(
@@ -96,14 +143,16 @@ def extract_octaves(
     sorted in reference push order). device, initial_image_scale,
     descriptor and on_gstack as in :func:`extract_features`; pre_blurred:
     img is already an octave base (the tail octaves of the Z-sharded path),
-    so the initial blur is skipped."""
+    so the initial blur is skipped. The batch of one is a view of
+    :func:`device_volume`'s tensor (a host volume bound for a card staged
+    through the device's ring)."""
     timer = timer or TRACER
     dev = resolve_device(device, like=img)
     with timer.stage("input"):
-        vol = _volume(img, dev)
+        batch = device_volume(img, dev)[None]
     hook = None if on_gstack is None else (lambda octave, gstack: on_gstack(octave, gstack[0]))
     for octave, rows in _batch_octaves(
-        vol[None], cfg, timer, initial_image_scale, descriptor, hook, pre_blurred,
+        batch, cfg, timer, initial_image_scale, descriptor, hook, pre_blurred,
     ):
         del rows["vi"]
         yield octave, rows
@@ -150,10 +199,13 @@ def extract_features_many(
     tensors); returns one FeatureSet per input, in input order, each equal
     bit for bit to :func:`extract_features` on that volume alone.
 
-    Volumes of one shape advance together: one stacked pyramid per shape
-    group and one candidate union per (group, octave), so the kernel
+    Volumes of one host shape advance together: one batch, one pyramid per
+    shape group and one candidate union per (group, octave), so the kernel
     launches and host syncs of an octave are paid once per group
-    (``sift3d.pipeline.extract.extract_features_many``). A volume without
+    (``sift3d.pipeline.extract.extract_features_many``). Each group's batch
+    is allocated once on the device and filled volume by volume (host
+    volumes bound for a card through the device's staging ring), so no
+    volume has a device tensor of its own. A volume without
     features gives an empty set. device, timer, initial_image_scale and
     descriptor as in :func:`extract_features`; pre_blurred as in
     :func:`extract_octaves`. The JAX package's ``streams`` (a TPU runtime's
@@ -162,15 +214,13 @@ def extract_features_many(
     """
     dev = resolve_device(device, like=imgs[0] if len(imgs) else None)
     timer = timer or TRACER
-    with timer.stage("input"):
-        vols = [_volume(img, dev) for img in imgs]
     groups: dict = {}
-    for i, vol in enumerate(vols):
-        groups.setdefault(tuple(vol.shape), []).append(i)
-    parts = [[] for _ in vols]
-    for vol_ids in groups.values():
+    for i, img in enumerate(imgs):
+        groups.setdefault(_shape(img), []).append(i)
+    parts = [[] for _ in imgs]
+    for shape, vol_ids in groups.items():
         with timer.stage("input"):
-            batch = torch.stack([vols[i] for i in vol_ids])
+            batch = _batch([imgs[i] for i in vol_ids], shape, dev)
         for octave, rows in _batch_octaves(
             batch, cfg, timer, initial_image_scale, descriptor, None, pre_blurred
         ):

@@ -21,6 +21,10 @@ A span costs a flag check unless something watches it:
   stream ms (between the events);
 - otherwise ``stage`` returns one shared ``nullcontext``.
 
+``tracer.count(name, n)`` adds n to a counter while recording and is a
+flag check otherwise; :meth:`Tracer.summary` prints the counters below the
+spans.
+
 No path calls ``torch.cuda.synchronize``. Each thread nests its spans on
 its own stack and appends to the record under a lock, so host threads
 that each extract (``dist/batch.py``) record side by side. A generator
@@ -73,6 +77,7 @@ class Totals:
 class Tracer:
     def __init__(self):
         self.spans: List[Span] = []
+        self.counts: Dict[str, int] = {}
         self._recording = False
         self._device: Optional[torch.device] = None
         self._lock = threading.Lock()
@@ -84,6 +89,13 @@ class Tracer:
         if not (self._recording or _autograd_profiler._is_profiler_enabled):
             return _OFF
         return self._span(name)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add n to the counter `name` while recording; nothing otherwise."""
+        if not self._recording:
+            return
+        with self._lock:
+            self.counts[name] = self.counts.get(name, 0) + n
 
     @contextlib.contextmanager
     def _span(self, name: str):
@@ -115,13 +127,14 @@ class Tracer:
 
     @contextlib.contextmanager
     def record(self, device=None):
-        """Keep every span opened inside the block (the spans of an earlier
-        record are dropped when it starts). device: a CUDA device, whose
-        current stream gets each span's pair of events; None or another
-        device records host times only."""
+        """Keep every span opened and every count made inside the block
+        (those of an earlier record are dropped when it starts). device: a
+        CUDA device, whose current stream gets each span's pair of events;
+        None or another device records host times only."""
         device = None if device is None else torch.device(device)
         with self._lock:
             self.spans = []
+            self.counts = {}
         self._device = device if device is not None and device.type == "cuda" else None
         self._recording = True
         try:
@@ -150,11 +163,14 @@ class Tracer:
         return out
 
     def summary(self) -> str:
-        """:meth:`totals` as a table."""
+        """:meth:`totals` as a table, then the counters."""
         lines = [f"{'span':24s} {'calls':>6s} {'host ms':>10s} {'self ms':>10s} {'stream ms':>10s}"]
         for name, t in self.totals().items():
             stream = "-" if t.stream_ms is None else f"{t.stream_ms:10.2f}"
             lines.append(f"{name:24s} {t.calls:6d} {t.host_ms:10.2f} {t.self_ms:10.2f} {stream:>10s}")
+        if self.counts:
+            lines.append(f"{'counter':24s} {'count':>17s}")
+            lines += [f"{name:24s} {n:17d}" for name, n in self.counts.items()]
         return "\n".join(lines)
 
 

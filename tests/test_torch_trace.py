@@ -157,9 +157,10 @@ def test_batched_extraction_ranges_nest_inside_a_callers_span(volume, tmp_path):
     assert len(outer) == 1 and all(_inside(r, outer[0]) for r in ranges if r is not outer[0])
     assert _disjoint(inner)
     names = [n for n, _, _ in inner]
-    # the volumes' uploads, then the batch's stack; the octaves, each followed by
-    # its rows' copy to the host and split; the sets last
-    assert names[:4] == ["input", "input", "initial_blur", "octave"] and names[-1] == "emit"
+    # one shape group: its batch filled in one span; the octaves, each followed
+    # by its rows' copy to the host and split; the sets last
+    assert names[:3] == ["input", "initial_blur", "octave"] and names[-1] == "emit"
+    assert names.count("input") == 1
     assert {n for n, _, _ in ranges} == set(EXTRACT_SPANS) | {"cohort"}
 
 
