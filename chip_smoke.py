@@ -8,7 +8,7 @@ Phases, each printing one line:
      the seconds the hand-written kernels took to build (nvcc, sm_90a) and
      the native .key I/O library (g++, io/native.py), the
      registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's, the
-     fused K2's and K4's (GoH and BRIEF) and M1-M3's kernels from the
+     fused K2's and K4's (GoH and BRIEF), K10's and M1-M3's kernels from the
      build's nvcc.log, and a warning naming any kernel that spills; the int8
      tensor-core instructions (IMMA) in M1's and M2's int8 kernels from
      cuobjdump -sass, which must hold some;
@@ -16,7 +16,10 @@ Phases, each printing one line:
      at main-path shapes — K7 (the blur) on the full-size initial and
      level-5 blurs, the -2+ initial and level-5 blurs (364x436x364) and
      4096 BRIEF patches, also exactly against the plain version on the CPU
-     (not at the -2+ shapes); K1 on the octave-0 Gaussian stack of the T1
+     (not at the -2+ shapes); K10 (the -2+ upsample, double_size_batch) on
+     a [16, 182, 218, 182] batch (a -2+ sub-batch of T1 volumes) against
+     the plain double_size chain volume by volume, exactly, its bound 36
+     bytes a voxel of the input; K1 on the octave-0 Gaussian stack of the T1
      grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
      grid, K6 on the T1 octave-0 DoGs and on one -2+ shard's one-plane-halo
      DoG slab, and the fused K2, K3 and K4 on the rows each of those octaves produces
@@ -90,7 +93,7 @@ Phases, each printing one line:
      qform and sform (grid 182x218x182), -2-, -b, -br and -bn on it: wall
      milliseconds of two calls, .key rows, and every kernel's launches (the
      fused K4 on the GoH flags, the fused BRIEF kernels on -b, -br and
-     -bn, K4's patch mode on none); then the descriptors stage of
+     -bn, K10 on -2+ alone, K4's patch mode on none); then the descriptors stage of
      extract_features with GoH and each BRIEF variant under torch.profiler:
      its launch calls and device ms;
   8. the CLI on the card against the CLI on the CPU for every flag, on the
@@ -950,12 +953,33 @@ def compare_kernels(vol, cfg):
     import torch
 
     from sift3d_torch.core.config import initial_blur_sigma
-    from sift3d_torch.kernels import extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels import extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda, resample_cuda
     from sift3d_torch.kernels.resample import double_size, subsample_2x
     from sift3d_torch.pipeline import features, pyramid
 
     results = []
     record = functools.partial(record_kernel, results)
+
+    # K10 on a -2+ sub-batch of T1 volumes (the planner's 16 on one card),
+    # against the plain chain volume by volume, exactly; its bound: each
+    # input voxel read once (4 B) and its 8 outputs written once (32 B)
+    gen = torch.Generator(device=vol.device).manual_seed(19)
+    batch = 400.0 * torch.rand((16,) + tuple(vol.shape), generator=gen, device=vol.device) - 150.0
+    out = torch.empty((16,) + resample_cuda.doubled_shape(vol.shape), device=vol.device)
+    record(
+        "double_size_batch", "sift3d_torch/csrc/double_size.cu", "sift3d/kernels/resample.py:67",
+        lambda: resample_cuda.double_size_batch(batch, out),
+        lambda: torch.stack([double_size(v) for v in batch]),
+        0.0, f"-2+ sub-batch {tuple(batch.shape)} -> {tuple(out.shape)} (exact)",
+        36 * batch.numel(), 28 * batch.numel(), plain_reps=3,
+    )
+    bits = bool(all(torch.equal(resample_cuda.double_size_batch(batch, out)[b], double_size(batch[b]))
+                    for b in range(batch.shape[0])))
+    print(f"phase2 double_size_batch: bit-equal to the plain chain on every volume {bits}")
+    if not bits:
+        raise AssertionError("K10 differs from the plain double_size chain")
+    del batch, out
+    torch.cuda.empty_cache()
 
     # K7 at the blur shapes of the paths: against cuBLAS (the plain version
     # on the card, another summation order) within 1e-6 of the peak, and
@@ -1213,19 +1237,20 @@ BRIEF_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 
 def cli_full_width(vol_np, wrappers, tmp: str):
     """Phase 7: the CLI on the card with the flags at full width. wrappers
-    holds the main path's kernels, the fused BRIEF kernels and K4's patch
-    mode (sample_rotated, on no path): the GoH flags must launch all but the
-    BRIEF kernels, -b, -br and -bn all but the GoH ones, none K4's patch
-    mode. Then the descriptors stage of extract_features with each BRIEF
-    variant under torch.profiler: its launch calls and device ms. Returns
-    the .key rows of each flag and the launches of the -bn run."""
+    holds the main path's kernels, the fused BRIEF kernels, K10
+    (double_size_batch) and K4's patch mode (sample_rotated, on no path):
+    the GoH flags must launch all but the BRIEF kernels, -b, -br and -bn
+    all but the GoH ones, -2+ alone K10, none K4's patch mode. Then the
+    descriptors stage of extract_features with each BRIEF variant under
+    torch.profiler: its launch calls and device ms. Returns the .key rows
+    and the launches of each flag."""
     from sift3d_torch.io import keyfile, nifti
 
     t1 = os.path.join(tmp, "t1.nii")
     nifti.write(t1, vol_np)
     aniso = os.path.join(tmp, "t1_aniso.nii")
     write_aniso(aniso, vol_np[::2], seed=4)
-    rows_of = {}
+    rows_of, launches_of = {}, {}
     for flag, path in (("-2+", t1), ("-w", aniso), ("-ws", aniso), ("-2-", t1), ("-b", t1), ("-br", t1),
                        ("-bn", t1)):
         walls = []
@@ -1245,9 +1270,10 @@ def cli_full_width(vol_np, wrappers, tmp: str):
             f"{rows} .key rows; {head[1].strip()}; launches {json.dumps(launches)}"
         )
         idle = (GOH_ONLY if flag in BRIEF_FLAGS else BRIEF_ONLY) + ("sample_rotated",)
+        idle += () if flag == "-2+" else ("double_size_batch",)
         if rows == 0 or any((launches[k] > 0) == (k in idle) for k in launches):
             raise AssertionError(f"the CLI with {flag} did not run its kernels: {launches}, {rows} rows")
-        rows_of[flag] = rows
+        rows_of[flag], launches_of[flag] = rows, launches
     import torch
 
     from sift3d_torch.core.config import DEFAULT_CONFIG
@@ -1260,7 +1286,7 @@ def cli_full_width(vol_np, wrappers, tmp: str):
             "{} launch calls in {} calls, ".format(*prof[5]["descriptors"])
             + f"{prof[6].get('descriptors')!r} device ms")
         print(f"phase7 extract_features {descriptor}: the descriptors stage {got}")
-    return rows_of, launches
+    return rows_of, launches_of
 
 
 def same_bytes(a: str, b: str) -> bool:
@@ -2506,7 +2532,7 @@ def main() -> int:
     from sift3d_torch.core.config import DEFAULT_CONFIG as cfg
     from sift3d_torch.core.device import resolve_device
     from sift3d_torch.io import keyfile, native, nifti
-    from sift3d_torch.kernels import cuda_lib, gauss_cuda, hist_cuda, patch_cuda
+    from sift3d_torch.kernels import cuda_lib, gauss_cuda, hist_cuda, patch_cuda, resample_cuda
     from sift3d_torch.pipeline import features
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import (
@@ -2530,14 +2556,15 @@ def main() -> int:
     )
     redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
                               "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel", "brief_kernel",
-                              "knn_", "ratio_", "hough_kernel"))
+                              "knn_", "ratio_", "hough_kernel", "double_size"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
           f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
           f"<0> on given patches; brief_kernel<R, 1> sampling, <R, 0> on given patches, R the pre-blur's "
           f"radius), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
           f"knn_merge_kernel<KM>; its f32 route: knn_topk_kernel<C, KM>), M2 (its int8 route: "
           f"ratio_i8_kernel<1> with the geometry in shared memory, <0> without; its f32 route: "
-          f"ratio_match_kernel) and M3 (hough_kernel, both modes): {json.dumps(redesigned)}")
+          f"ratio_match_kernel), M3 (hough_kernel, both modes) and K10 (double_size_kernel): "
+          f"{json.dumps(redesigned)}")
     for kernel, what in (("knn_topk_i8_kernel", "M1's int8 kernels"), ("ratio_i8_kernel", "M2's int8 kernels")):
         imma = sass_count(kernel, "IMMA")
         print(f"phase1 cuobjdump -sass: int8 tensor-core instructions (IMMA) in {what} {json.dumps(imma)}")
@@ -2689,11 +2716,14 @@ def main() -> int:
         raise AssertionError("the CLI did not run the kernels on the card, or disagrees with the CPU")
 
     with tempfile.TemporaryDirectory() as tmp:
-        rows_of, bn_launches = cli_full_width(
+        rows_of, launches_of = cli_full_width(
             vol_np, dict(wrappers, rotated_brief=patch_cuda.rotated_brief, brief=patch_cuda.brief,
+                         double_size_batch=resample_cuda.double_size_batch,
                          sample_rotated=patch_cuda.sample_rotated), tmp)
-    # the fused BRIEF kernels run on the BRIEF path only: their launches are -bn's
-    launches.update(rotated_brief=bn_launches["rotated_brief"], brief=bn_launches["brief"])
+    # the fused BRIEF kernels run on the BRIEF path only: their launches are
+    # -bn's; K10 runs on -2+ alone
+    launches.update(rotated_brief=launches_of["-bn"]["rotated_brief"], brief=launches_of["-bn"]["brief"],
+                    double_size_batch=launches_of["-2+"]["double_size_batch"])
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(wrappers, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]

@@ -48,7 +48,7 @@ def on_device(dev: torch.device):
 
 def extract_features_batch(
     vols: Sequence, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG,
-    initial_image_scale: float = 1.0, descriptor: str = "goh",
+    initial_image_scale: float = 1.0, descriptor: str = "goh", prescale: Optional[str] = None,
 ) -> List[FeatureSet]:
     """Extract features from [Z, Y, X] volumes (numpy arrays or tensors)
     over a mesh; returns one FeatureSet per volume, in input order, each
@@ -59,7 +59,8 @@ def extract_features_batch(
     volumes are dealt round-robin over the first min(len(mesh), len(vols))
     entries; each entry runs ``extract_features_many`` on its group in a
     host thread of its own. An entry's error is raised here.
-    initial_image_scale and descriptor as in ``extract_features``."""
+    initial_image_scale, descriptor and prescale as in
+    ``extract_features``."""
     mesh = make_mesh(devices=mesh)
     if not len(vols):
         return []
@@ -69,7 +70,7 @@ def extract_features_batch(
         with on_device(dev):
             return extract_features_many(
                 [vols[i] for i in ids], cfg, device=dev,
-                initial_image_scale=initial_image_scale, descriptor=descriptor,
+                initial_image_scale=initial_image_scale, descriptor=descriptor, prescale=prescale,
             )
 
     groups = [list(range(e, len(vols), n)) for e in range(n)]

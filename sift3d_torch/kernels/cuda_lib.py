@@ -67,6 +67,8 @@ SIGNATURES = {
     # in, out, tmp [B,Z,Y,X] f32, taps [2r+1] f32 and geom [6] i32 in host memory
     # (gauss_cuda.blur_launch_geometry), r, B, Z, Y, X
     "sift3d_blur3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
+    # in [B,Z,Y,X] f32, out [B,OZ,OY,OX] f32 (resample_cuda.doubled_shape), B, Z, Y, X
+    "sift3d_double_size": (_P, _P, _I, _I, _I, _I),
     # gstack [B,L,Z,Y,X], dogs [B,ND,ZD,Y,X], lvl [R] i64, zyx [R,3] i64, vi [R] i64 (volume
     # index; null: B = 1), sigmas [ND] f32 in host memory; out xyz [R,3], scale [R], pn [R,1331],
     # eigs [R,3], ori [R,3,3], in_bounds [R] and eig_keep [R] bool; eig_threshold, R, B, L, Z, ND,

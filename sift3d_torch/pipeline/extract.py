@@ -31,10 +31,21 @@ JAX package's exist for XLA's static shapes and a remote TPU runtime; its
 The entry points run on the card unless the caller passes device="cpu". A
 volume too large for one card goes through
 ``sift3d_torch.dist.spatial.extract_features_spatial``.
+
+``prescale="double"`` is featExtract's ``-2+`` on every entry point: a
+host volume is staged at its own size, then doubled on the card
+(``kernels/resample_cuda.double_size_batch``, one launch a batch) into the
+extraction grid, the initial blur assumes the doubled image's sigma_init /
+0.5, and the FeatureSets come back in the input volume's voxel coordinates
+(location and scale x 0.5, featExtract.cpp:422-427, 502-505). A shape group
+whose octave-0 pyramid would not fit the device's memory runs as balanced
+sub-batches, one after another on the device's stream
+(:func:`plan_subbatches`).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -43,8 +54,23 @@ import torch
 from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.device import resolve_device
 from sift3d_torch.core.featureset import FeatureSet
+from sift3d_torch.kernels.resample_cuda import double_size_batch, doubled_shape
 from sift3d_torch.pipeline import features, pyramid, staging
 from sift3d_torch.utils.timing import TRACER, Tracer
+
+# prescale -> the factor that takes the extraction grid's voxel coordinates
+# back to the input volume's (featExtract.cpp:422-427, 502-505)
+SIZE_FACTORS = {None: 1.0, "double": 0.5}
+# the f32 volumes of the extraction grid that one volume of a batch holds at
+# its pyramid's peak, K1's launch in octave 0 (pyramid.octave_core): the
+# batch's slot (1), the six blur levels (6, the initial blur's output among
+# them) and their torch.stack copy (6), the DoGs (5), the extrema mask's
+# three int8 planes (3/4) and the next octave's base (1/8). K7's scratch
+# (1) is freed before it, and the feature stage's rows, which come after,
+# take far less.
+OCTAVE0_VOLUMES = 1 + 6 + 6 + 5 + 3 / 4 + 1 / 8
+# device memory a call leaves to everything but its batches' pyramids
+MARGIN_BYTES = 2 << 30
 
 
 def _shape(img) -> tuple:
@@ -96,6 +122,94 @@ def device_volume(img, device) -> torch.Tensor:
     return _batch([img], shape, dev)[0] if _staged(img, dev) else _volume(img, dev)
 
 
+def extraction_shape(shape_zyx, prescale: Optional[str] = None) -> tuple:
+    """The [Z, Y, X] that a volume of shape shape_zyx is extracted at."""
+    if prescale == "double":
+        return doubled_shape(shape_zyx)
+    return tuple(int(n) for n in shape_zyx)
+
+
+def _initial_scale(prescale: Optional[str], initial_image_scale: float, pre_blurred: bool = False) -> float:
+    """The initial image scale of an entry point's call; raises on an
+    unknown prescale and on one combined with a non-default
+    initial_image_scale or with pre_blurred."""
+    if prescale not in SIZE_FACTORS:
+        raise ValueError(f"prescale must be None or 'double', got {prescale!r}")
+    if prescale is None:
+        return initial_image_scale
+    if initial_image_scale != 1.0 or pre_blurred:
+        raise ValueError("prescale sets the initial image scale itself: pass neither initial_image_scale "
+                         "nor pre_blurred with it")
+    return 0.5
+
+
+def volume_bytes(grid_zyx) -> int:
+    """Device bytes one volume of a batch on the extraction grid grid_zyx
+    holds at its pyramid's peak: OCTAVE0_VOLUMES f32 volumes."""
+    return math.ceil(OCTAVE0_VOLUMES * 4 * math.prod(int(n) for n in grid_zyx))
+
+
+def plan_subbatches(grid_zyx, n: int, budget_bytes: Optional[int]) -> List[int]:
+    """The sizes of the sub-batches that n volumes of the extraction grid
+    grid_zyx run as: n split as evenly as possible into the fewest k parts
+    (sizes ceil(n / k) and one less) whose largest fits budget_bytes at
+    :func:`volume_bytes` a volume; one volume a part where not even one
+    fits. budget_bytes None: one part."""
+    if n <= 0:
+        return []
+    fit = n if budget_bytes is None else max(1, min(n, int(budget_bytes) // volume_bytes(grid_zyx)))
+    k = -(-n // fit)
+    return [n // k + (i < n % k) for i in range(k)]
+
+
+def device_budget(dev: torch.device) -> Optional[int]:
+    """The bytes a shape group's sub-batches may take on dev, read at the
+    call: the device's free memory (``torch.cuda.mem_get_info``) and what
+    torch's allocator holds unused, less MARGIN_BYTES; None for the CPU,
+    whose batches are never split."""
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return free + cached - MARGIN_BYTES
+
+
+def _input(imgs: Sequence, shape: tuple, dev: torch.device, prescale: Optional[str], timer: Tracer,
+           single: bool = False) -> torch.Tensor:
+    """The [B, Z, Y, X] extraction batch of imgs (all of host shape
+    `shape`): the batch at the input's size (``_batch``; single:
+    ``device_volume``'s batch of one) in the span ``input``, then under
+    prescale "double" doubled in the span ``upsample``, which counts the
+    doubled batch's bytes as ``upsampled_bytes``."""
+    with timer.stage("input"):
+        batch = device_volume(imgs[0], dev)[None] if single else _batch(imgs, shape, dev)
+    if prescale != "double":
+        return batch
+    with timer.stage("upsample"):
+        out = torch.empty((batch.shape[0],) + doubled_shape(shape), dtype=torch.float32, device=dev)
+        double_size_batch(batch, out)
+    TRACER.count("upsampled_bytes", out.numel() * out.element_size())
+    return out
+
+
+def prescaled_volume(img, prescale: Optional[str], device=None) -> torch.Tensor:
+    """img (a [Z, Y, X] volume) on the device as the entry points extract
+    it under prescale: doubled by the kernel on a card, or as it is (the
+    CLI's --debug-pgm slice and its --spatial input)."""
+    dev = resolve_device(device, like=img)
+    return _input([img], _shape(img), dev, prescale, TRACER, single=True)[0]
+
+
+def _in_input_voxels(fs: FeatureSet, prescale: Optional[str]) -> FeatureSet:
+    """fs, extracted on the prescaled grid, in the input volume's voxel
+    coordinates: location and scale times the size factor, in place."""
+    if prescale is not None:
+        factor = np.float32(SIZE_FACTORS[prescale])
+        fs.xyz *= factor
+        fs.scale *= factor
+    return fs
+
+
 def _batch_octaves(
     batch: torch.Tensor, cfg: SiftConfig, timer: Tracer, initial_image_scale: float,
     descriptor: str, on_gstack: Optional[Callable[[int, torch.Tensor], None]], pre_blurred: bool,
@@ -136,23 +250,25 @@ def extract_octaves(
     img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh",
     on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None, pre_blurred: bool = False,
+    prescale: Optional[str] = None,
 ) -> Iterator[Tuple[int, dict]]:
     """Yield (octave, rows) for every octave of one volume that emits
     features: the batched body on a batch of one. rows is
-    ``features.emit_octave``'s dict without vi (octave-local geometry, rows
-    sorted in reference push order). device, initial_image_scale,
-    descriptor and on_gstack as in :func:`extract_features`; pre_blurred:
-    img is already an octave base (the tail octaves of the Z-sharded path),
-    so the initial blur is skipped. The batch of one is a view of
-    :func:`device_volume`'s tensor (a host volume bound for a card staged
-    through the device's ring)."""
+    ``features.emit_octave``'s dict without vi (octave-local geometry of
+    the extraction grid, rows sorted in reference push order). device,
+    initial_image_scale, descriptor, on_gstack and prescale as in
+    :func:`extract_features`; pre_blurred: img is already an octave base
+    (the tail octaves of the Z-sharded path), so the initial blur is
+    skipped. The batch of one is a view of :func:`device_volume`'s tensor
+    (a host volume bound for a card staged through the device's ring), or
+    its doubled copy."""
     timer = timer or TRACER
+    scale = _initial_scale(prescale, initial_image_scale, pre_blurred)
     dev = resolve_device(device, like=img)
-    with timer.stage("input"):
-        batch = device_volume(img, dev)[None]
+    batch = _input([img], _shape(img), dev, prescale, timer, single=True)
     hook = None if on_gstack is None else (lambda octave, gstack: on_gstack(octave, gstack[0]))
     for octave, rows in _batch_octaves(
-        batch, cfg, timer, initial_image_scale, descriptor, hook, pre_blurred,
+        batch, cfg, timer, scale, descriptor, hook, pre_blurred,
     ):
         del rows["vi"]
         yield octave, rows
@@ -161,7 +277,7 @@ def extract_octaves(
 def extract_features(
     img, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh",
-    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
+    on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None, prescale: Optional[str] = None,
 ) -> FeatureSet:
     """Extract 3D SIFT features (reoriented copies included) from a
     [Z, Y, X] volume (numpy array or tensor).
@@ -171,29 +287,33 @@ def extract_features(
     device, else the current CUDA device) and raises without one.
     timer: what opens the spans (``utils.timing``; None: the process's
     tracer).
-    initial_image_scale: 0.5 for an image the CLI doubled (-2+), whose
+    initial_image_scale: 0.5 for an image its caller doubled, whose
     initial blur then assumes sigma_init / 0.5.
     descriptor: "goh" (default), "brief", "rrief" or "nrrief". on_gstack:
     called as on_gstack(octave, gstack) with every octave's [6, Z, Y, X]
-    Gaussian stack before its features (the CLI's --debug-pgm). Returns
-    features in voxel coordinates of the input volume, ordered as the JAX
-    package orders them.
+    Gaussian stack before its features (the CLI's --debug-pgm).
+    prescale: None or "double" (featExtract's -2+: the volume doubled on
+    the device, initial_image_scale 0.5); with it, initial_image_scale
+    must stay 1.0. Returns features in voxel
+    coordinates of the input volume, ordered as the JAX package orders
+    them.
     """
     timer = timer or TRACER
     parts = []
     for octave, rows in extract_octaves(
         img, cfg, device, timer,
-        initial_image_scale=initial_image_scale, descriptor=descriptor, on_gstack=on_gstack,
+        initial_image_scale=initial_image_scale, descriptor=descriptor, on_gstack=on_gstack, prescale=prescale,
     ):
         with timer.stage("emit"):
             parts.append(octave_features(rows, octave))
     with timer.stage("emit"):
-        return FeatureSet.concatenate(parts)
+        return _in_input_voxels(FeatureSet.concatenate(parts), prescale)
 
 
 def extract_features_many(
     imgs: Sequence, cfg: SiftConfig = DEFAULT_CONFIG, device=None, timer: Optional[Tracer] = None,
     *, initial_image_scale: float = 1.0, descriptor: str = "goh", pre_blurred: bool = False,
+    prescale: Optional[str] = None,
 ) -> List[FeatureSet]:
     """Extract features from several [Z, Y, X] volumes (numpy arrays or
     tensors); returns one FeatureSet per input, in input order, each equal
@@ -202,39 +322,57 @@ def extract_features_many(
     Volumes of one host shape advance together: one batch, one pyramid per
     shape group and one candidate union per (group, octave), so the kernel
     launches and host syncs of an octave are paid once per group
-    (``sift3d.pipeline.extract.extract_features_many``). Each group's batch
-    is allocated once on the device and filled volume by volume (host
-    volumes bound for a card through the device's staging ring), so no
-    volume has a device tensor of its own. A volume without
-    features gives an empty set. device, timer, initial_image_scale and
-    descriptor as in :func:`extract_features`; pre_blurred as in
-    :func:`extract_octaves`. The JAX package's ``streams`` (a TPU runtime's
-    overlap of host reads with device work) is not ported; it changes no
-    result.
+    (``sift3d.pipeline.extract.extract_features_many``). A group whose
+    pyramid would not fit the device's memory (:func:`device_budget`, read
+    once a group) runs as the balanced sub-batches of
+    :func:`plan_subbatches`, in order, each opening one span ``input``;
+    the counter ``subbatches`` counts them. Each sub-batch's batch is
+    allocated once on the device and filled volume by volume (host volumes
+    bound for a card through the device's staging ring), so no volume has
+    a device tensor of its own; with prescale, the batch is then doubled
+    into the extraction batch. A volume without features gives an empty set.
+    device, timer, initial_image_scale, descriptor and prescale as in
+    :func:`extract_features`; pre_blurred as in :func:`extract_octaves`.
+    The JAX package's ``streams`` (a TPU runtime's overlap of host reads
+    with device work) is not ported; it changes no result.
     """
+    scale = _initial_scale(prescale, initial_image_scale, pre_blurred)
     dev = resolve_device(device, like=imgs[0] if len(imgs) else None)
     timer = timer or TRACER
     groups: dict = {}
     for i, img in enumerate(imgs):
         groups.setdefault(_shape(img), []).append(i)
     parts = [[] for _ in imgs]
-    for shape, vol_ids in groups.items():
-        with timer.stage("input"):
-            batch = _batch([imgs[i] for i in vol_ids], shape, dev)
-        for octave, rows in _batch_octaves(
-            batch, cfg, timer, initial_image_scale, descriptor, None, pre_blurred
-        ):
-            with timer.stage("emit"):
-                host = {k: v.cpu().numpy() for k, v in rows.items()}
-                # rows are sorted by volume: volume b's are one run
-                bounds = np.searchsorted(host["vi"], np.arange(len(vol_ids) + 1))
-                for b, vol_i in enumerate(vol_ids):
-                    lo, hi = bounds[b], bounds[b + 1]
-                    if hi > lo:
-                        parts[vol_i].append(octave_features({k: v[lo:hi] for k, v in host.items()}, octave))
-        del batch
+    for shape, group in groups.items():
+        at = 0
+        for size in plan_subbatches(extraction_shape(shape, prescale), len(group), device_budget(dev)):
+            vol_ids, at = group[at : at + size], at + size
+            TRACER.count("subbatches")
+            _subbatch([imgs[i] for i in vol_ids], shape, dev, cfg, timer, scale, descriptor, pre_blurred,
+                      prescale, [parts[i] for i in vol_ids])
     with timer.stage("emit"):
-        return [FeatureSet.concatenate(p) for p in parts]
+        return [_in_input_voxels(FeatureSet.concatenate(p), prescale) for p in parts]
+
+
+def _subbatch(imgs: Sequence, shape: tuple, dev: torch.device, cfg: SiftConfig, timer: Tracer,
+              initial_image_scale: float, descriptor: str, pre_blurred: bool, prescale: Optional[str],
+              parts: List[list]) -> None:
+    """One sub-batch of :func:`extract_features_many`: imgs through the
+    pyramid and the feature stage as one batch; each octave's FeatureSet
+    of volume b is appended to parts[b]. Its batches are freed on return,
+    before the next sub-batch allocates its own."""
+    batch = _input(imgs, shape, dev, prescale, timer)
+    for octave, rows in _batch_octaves(
+        batch, cfg, timer, initial_image_scale, descriptor, None, pre_blurred
+    ):
+        with timer.stage("emit"):
+            host = {k: v.cpu().numpy() for k, v in rows.items()}
+            # rows are sorted by volume: volume b's are one run
+            bounds = np.searchsorted(host["vi"], np.arange(len(imgs) + 1))
+            for b in range(len(imgs)):
+                lo, hi = bounds[b], bounds[b + 1]
+                if hi > lo:
+                    parts[b].append(octave_features({k: v[lo:hi] for k, v in host.items()}, octave))
 
 
 def octave_features(rows: dict, octave: int) -> FeatureSet:

@@ -133,7 +133,7 @@ def test_cli_runs_on_the_card(tmp_path, monkeypatch):
 
     def fake_extract(data, cfg, device, timer, **kwargs):
         assert data.device == device == torch.device("cpu")
-        assert kwargs == dict(initial_image_scale=1.0, descriptor="goh", on_gstack=None)
+        assert kwargs == dict(prescale=None, descriptor="goh", on_gstack=None)
         return extract_features(data, cfg, device=device, timer=timer, **kwargs)
 
     monkeypatch.setattr(tx_cli, "resolve_device", fake_resolve)
