@@ -7,7 +7,8 @@ Phases, each printing one line:
   1. the card (nvidia-smi name and power limit), PyTorch and CUDA versions,
      the seconds the hand-written kernels took to build (nvcc, sm_90a) and
      the native .key I/O library (g++, io/native.py), the
-     registers, shared memory and spills of K7's, K3/K8/K9's, K1/K6's, the
+     registers, shared memory and spills of K7's, K3/K8/K9's, the fused
+     canonical stage's, K1/K6's, the
      fused K2's and K4's (GoH and BRIEF), K10's and M1-M3's kernels from the
      build's nvcc.log, and a warning naming any kernel that spills; the int8
      tensor-core instructions (IMMA) in M1's and M2's int8 kernels from
@@ -22,17 +23,21 @@ Phases, each printing one line:
      bytes a voxel of the input; K1 on the octave-0 Gaussian stack of the T1
      grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
      grid, K6 on the T1 octave-0 DoGs and on one -2+ shard's one-plane-halo
-     DoG slab, and the fused K2, K3 and K4 on the rows each of those octaves produces
-     (T1's tiled to 4096), K8 and K9 on T1's primary-histogram rows, whose
-     K9 top-k must equal K3 — with the max abs difference, the tolerance,
+     DoG slab, and the fused K2, K3, the fused canonical stage (both
+     orientation histograms, their peaks and the frames, bit for bit the
+     plain canonical_stage_plain on every entry of ori and ori_valid) and
+     K4 on the rows each of those octaves produces (T1's tiled to 4096),
+     K8 and K9 on T1's primary-histogram rows, whose K9 top-k must equal
+     K3 — with the max abs difference, the tolerance,
      median milliseconds of both (one call between two CUDA events, and
      a call's share of a burst of 20, which leaves out the host's launch
      gap), the bound (the least time the card could take: bytes over 3.35
      TB/s or f32 FLOPs over 67 TFLOP/s, whichever is larger) and, where one
      PyTorch call computes the same function, that call's milliseconds (the
-     fused K2 and K4, which no one PyTorch call computes, beside the device
-     time of the eager chain each replaces on the same rows: the plain
-     refinement, sampler and eigen test for K2, K4's patch mode and the
+     fused K2, the fused canonical stage and K4, which no one PyTorch call
+     computes, beside the device time of the eager chain each replaces on
+     the same rows: the plain refinement, sampler and eigen test for K2,
+     the plain stage around K3 for the canonical stage, K4's patch mode and the
      eager GoH descriptor for K4, K4's patch mode and the eager BRIEF
      descriptor for the fused BRIEF kernels rotated_brief and brief, each
      on T1's rows with the three variants); K7
@@ -68,18 +73,21 @@ Phases, each printing one line:
   3. extract_features on the 182x218x182 blob texture (the 1 mm MNI T1
      grid) on cuda:0: each span's host and stream milliseconds (the
      tracer's record, which waits for nothing), feature counts, and every
-     kernel's launch count in that run (each must be > 0); then K8's and
-     K9's own path (they have no caller on the main path): their entry
-     points smooth_histogram and smooth_histogram_peaks on T1's
-     primary-histogram points, and the launches there; and K4's patch mode
+     kernel's launch count in that run (each must be > 0; the fused
+     canonical stage once a canonical span) and the canonical_rows and
+     reoriented_rows counters; then K3's, K8's and K9's own path (they have
+     no caller on the main path): their entry points hist_topk,
+     smooth_histogram and smooth_histogram_peaks on T1's primary-histogram
+     points, and the launches there; and K4's patch mode
      (no caller on a path since the BRIEF path is fused) through its entry
      point on the extraction's reoriented rows;
   4. the same call not recorded (host wall of five calls) and once
      under torch.profiler: device busy milliseconds, the trace's span, the
      idle share against both (the profiler slows the host, so the share
      against the unprofiled wall is the one a user sees), the launch calls
-     in each stage, and the device milliseconds of the costliest kernel
-     names in the trace;
+     in each stage (the canonical stage's at most CANONICAL_LAUNCHES a
+     call: the fused pair and reoriented_slots), and the device
+     milliseconds of the costliest kernel names in the trace;
   5. the port on the card against the port on the CPU on
      synthetic_volume(64): equal counts, locations, scales, orientations
      and eigenvalues (max difference 0.0), identical descriptors on every
@@ -110,7 +118,7 @@ Phases, each printing one line:
      beside extract_features' walls, device peak memory and each shard's
      working set, and the launches
      (K6 once per shard in every sharded octave, K1 once per tail octave,
-     K7, the fused K2, K3 and the fused K4 > 0); then spatial on the card
+     K7, the fused K2, the fused canonical stage and the fused K4 > 0); then spatial on the card
      against spatial on the CPU on synthetic_volume(64) (equal rows,
      orientations and descriptors), and over every card when there are two
      or more;
@@ -140,8 +148,8 @@ Phases, each printing one line:
      extract_features on it alone, bit for bit; for each B the median wall
      of 5 calls, volumes/s, device busy and launch calls a volume and the
      idle share from one torch.profiler trace, the device peak, and the
-     launches a batch of K7, K1 (once per octave), the fused K2, K3, the
-     fused K4 and goh; then a mixed batch (a T1-grid volume, zeros, a -2-
+     launches a batch of K7, K1 (once per octave), the fused K2, the fused
+     canonical stage, the fused K4 and goh; then a mixed batch (a T1-grid volume, zeros, a -2-
      grid volume) on the card against the same batch on the CPU, exact.
 Phase 2 also holds the matching kernels against their plain versions,
 exactly, with the same times, bounds and yardsticks: M1 (kNN, k = 5) on
@@ -182,6 +190,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FULL_DIMS = (182, 218, 182)
 MIN_ROWS = 4096
 REPS = 10
+CANONICAL_LAUNCHES = 24  # launch calls a canonical span, at most: the fused pair and reoriented_slots
 
 
 def card_line() -> str:
@@ -1123,6 +1132,33 @@ def compare_kernels(vol, cfg):
             if not same:
                 raise AssertionError("the top-k of K9's peak plane differs from K3's output")
 
+        # the fused canonical stage on the same rows, against the plain
+        # stage around K3 (its eager chain) on the card, bit for bit; its
+        # bound: each patch read once and the frames written once, and the
+        # histograms' multiply-adds, one a row and one a live primary
+        crow = at_least([pn[kidx].contiguous()], tile)[0]
+        k2 = cfg.max_secondary_orientations
+
+        def canonical(fn):
+            o = fn(crow, cfg)
+            return o["ori"], o["ori_valid"]
+
+        fused, eager = canonical(features.canonical_stage), canonical(features.canonical_stage_plain)
+        live = int((eager[0][:, :, 0, 0, :] != 0).any(-1).sum())
+        record(
+            "canonical", "sift3d_torch/csrc/hist_topk.cu", "sift3d/pipeline/features.py:526",
+            lambda: canonical(features.canonical_stage), lambda: canonical(features.canonical_stage_plain),
+            0.0, f"{label}: {kidx.shape[0]} octave-0 rows as {crow.shape[0]} rows, {live} live primaries, "
+            f"k1={k1}, k2={k2} (exact)",
+            (4 * 1331 + 37 * k1 * k2) * crow.shape[0], 2 * nz**3 * v_pts * (crow.shape[0] + live),
+            chain=lambda: canonical(features.canonical_stage_plain), plain_reps=3,
+        )
+        bits = (torch.equal(fused[0].view(torch.int32), eager[0].view(torch.int32))
+                and torch.equal(fused[1], eager[1]))
+        print(f"phase2 canonical: {label}: ori and ori_valid bit-equal to the plain stage on the card {bits}")
+        if not bits:
+            raise AssertionError(f"the fused canonical stage differs from the plain stage on {label}")
+        del crow, fused, eager
         o = features.canonical_stage(pn[kidx], cfg)
         row, slot = features.reoriented_slots(o["ori_valid"], cfg)
         s = cfg.max_primary_orientations * cfg.max_secondary_orientations
@@ -1374,7 +1410,7 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
         "blur3d": gauss_cuda.blur3d,
         "dogs_extrema": extrema_cuda.dogs_extrema,
         "gather_eig": features.gather_eig,
-        "hist_topk": hist_cuda.hist_topk,
+        "canonical": hist_cuda.canonical_orientations,
         "rotated_goh": patch_cuda.rotated_goh,
         "goh": patch_cuda.goh,
     }
@@ -2252,7 +2288,7 @@ def extraction_wrappers():
     from sift3d_torch.pipeline import features
 
     return {"blur3d": gauss_cuda.blur3d, "dogs_extrema": extrema_cuda.dogs_extrema,
-            "gather_eig": features.gather_eig, "hist_topk": hist_cuda.hist_topk,
+            "gather_eig": features.gather_eig, "canonical": hist_cuda.canonical_orientations,
             "rotated_goh": patch_cuda.rotated_goh, "goh": patch_cuda.goh}
 
 
@@ -2488,7 +2524,7 @@ def multiprocess_run(base, cfg, want, tmp: str) -> None:
 
 
 # profiler names of the kernels whose wrapper is named otherwise
-TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",),
+TRACE_NAMES = {"blur3d": ("::blur",), "gather_eig": ("::identity_eig_kernel",), "canonical": ("::canonical_",),
                "rotated_goh": ("::goh_kernel<true>",), "goh": ("::goh_kernel<false>",)}
 
 
@@ -2554,10 +2590,12 @@ def main() -> int:
         f"(csrc/key_text.cpp): g++ build {native.build_seconds()!r} s, loaded in {native_s:.3f} s "
         f"({native.library_path().parent.name})"
     )
-    redesigned = nvcc_report(("blur", "hist_topk", "splat_histogram_raw", "smooth_histogram_peaks",
-                              "dogs_extrema", "extrema_mask", "identity_eig", "goh_kernel", "brief_kernel",
+    redesigned = nvcc_report(("blur", "hist_topk", "canonical_", "splat_histogram_raw",
+                              "smooth_histogram_peaks", "dogs_extrema", "extrema_mask", "identity_eig",
+                              "goh_kernel", "brief_kernel",
                               "knn_", "ratio_", "hough_kernel", "double_size"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
+          f"the fused canonical stage (canonical_primary_kernel, canonical_secondary_kernel), "
           f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
           f"<0> on given patches; brief_kernel<R, 1> sampling, <R, 0> on given patches, R the pre-blur's "
           f"radius), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
@@ -2592,19 +2630,27 @@ def main() -> int:
     launches = {name: w.launches for name, w in wrappers.items()}
     n_reor = int(feats.is_reoriented.sum())
     # [host ms, stream ms] of each span (the tracer waits for nothing)
-    stages = {k: [round(t.host_ms, 3), round(t.stream_ms, 3)] for k, t in TRACER.totals().items()}
+    totals = TRACER.totals()
+    stages = {k: [round(t.host_ms, 3), round(t.stream_ms, 3)] for k, t in totals.items()}
+    counts = {k: TRACER.counts.get(k) for k in ("canonical_rows", "reoriented_rows")}
     print(
         f"phase3 extract_features {FULL_DIMS} on {dev}: {len(feats)} features "
         f"({len(feats) - n_reor} unoriented, {n_reor} reoriented); wall {wall_ms!r} ms; "
-        f"spans [host ms, stream ms] {json.dumps(stages)}; launches {json.dumps(launches)}"
+        f"spans [host ms, stream ms] {json.dumps(stages)}; launches {json.dumps(launches)}; "
+        f"counters {json.dumps(counts)}"
     )
     if len(feats) == 0 or min(launches.values()) <= 0:
         raise AssertionError(f"main path did not run every kernel: {launches}, {len(feats)} features")
+    if (launches["canonical"] != totals["canonical"].calls
+            or counts != {"canonical_rows": len(feats) - n_reor, "reoriented_rows": n_reor}):
+        raise AssertionError(f"the fused canonical stage ran {launches['canonical']} times in "
+                             f"{totals['canonical'].calls} canonical spans; counters {counts}")
     finite = all(np.isfinite(a).all() for a in (feats.xyz, feats.scale, feats.ori, feats.eigs))
     ranks_ok = bool((np.sort(feats.desc, axis=1) == np.arange(64)).all())
     if not (finite and ranks_ok):
         raise AssertionError(f"bad features: finite={finite}, descriptors are ranks={ranks_ok}")
-    # K8 and K9 have no caller on the main path (nor in the JAX package):
+    # K3 (whose body the fused canonical stage runs), K8 and K9 have no
+    # caller on the main path (K8 and K9 none in the JAX package either):
     # their own path is their entry points, here on T1's primary histograms
     _, _, in_bounds, pn, _, _, eig_keep = features.gather_eig(
         *dogs_stack_rows(vol, cfg), tuple(cfg.level_sigmas()), cfg
@@ -2612,26 +2658,29 @@ def main() -> int:
     e3, wgt = features.sphere_edges(pn[in_bounds & eig_keep])
     centred = [u + 0.5 for u in features.splat_coords(e3)]  # the JAX functions' 0.5 centres
     band = features.ori_hist_band(cfg, dev)
-    entry = {"splat_histogram_raw": hist_cuda.splat_histogram_raw_bins,
+    entry = {"hist_topk": hist_cuda.hist_topk, "splat_histogram_raw": hist_cuda.splat_histogram_raw_bins,
              "smooth_histogram_peaks": hist_cuda.smooth_histogram_peaks_bins,
              "blur3d": gauss_cuda.blur3d}
     for w in entry.values():
         w.launches = 0
+    tops = hist_cuda.hist_topk(*features.splat_coords(e3), wgt, band, cfg.max_primary_orientations)
     smoothed = hist_cuda.smooth_histogram(*centred, wgt, cfg.ori_hist_blur_sigma)
     hb, pk = hist_cuda.smooth_histogram_peaks(*centred, wgt, band)
     torch.cuda.synchronize()
     entry_launches = {name: w.launches for name, w in entry.items()}
     fin = bool(torch.isfinite(smoothed).all() and torch.isfinite(hb).all()
-               and torch.equal(torch.isfinite(pk), pk > -torch.inf))
+               and torch.equal(torch.isfinite(pk), pk > -torch.inf) and torch.isfinite(tops[:, 0, 0]).any())
     print(
-        f"phase3 K8/K9 entry points on {wgt.shape[0]} T1 octave-0 primary histograms "
-        f"(V={wgt.shape[1]}): smooth_histogram {tuple(smoothed.shape)}, smooth_histogram_peaks "
+        f"phase3 K3/K8/K9 entry points on {wgt.shape[0]} T1 octave-0 primary histograms "
+        f"(V={wgt.shape[1]}): hist_topk {tuple(tops.shape)}, smooth_histogram {tuple(smoothed.shape)}, "
+        f"smooth_histogram_peaks "
         f"{int(torch.isfinite(pk).sum())} peaks; finite {fin}; launches {json.dumps(entry_launches)}"
     )
     if not fin or min(entry_launches.values()) <= 0:
-        raise AssertionError(f"the K8/K9 entry points did not run their kernels: {entry_launches}")
-    launches.update({k: entry_launches[k] for k in ("splat_histogram_raw", "smooth_histogram_peaks")})
-    del pn, e3, wgt, centred, smoothed, hb, pk
+        raise AssertionError(f"the K3/K8/K9 entry points did not run their kernels: {entry_launches}")
+    launches.update({k: entry_launches[k] for k in ("hist_topk", "splat_histogram_raw",
+                                                     "smooth_histogram_peaks")})
+    del pn, e3, wgt, centred, smoothed, hb, pk, tops
     launches["sample_rotated"] = sample_rotated_entry(vol, feats, cfg)
 
     walls = []
@@ -2660,6 +2709,10 @@ def main() -> int:
             if m:
                 n0, ms0 = k7.get(m.group(1), (0, 0.0))
                 k7[m.group(1)] = [n0 + n, round(ms0 + ms, 4)]
+        canonical_calls = stage_launches.get("canonical", [0, 0])
+        if not 0 < canonical_calls[0] <= CANONICAL_LAUNCHES * canonical_calls[1]:
+            raise AssertionError(f"the canonical stage made {canonical_calls[0]} launch calls in "
+                                 f"{canonical_calls[1]} calls (at most {CANONICAL_LAUNCHES} a call)")
         print(
             f"phase4 wall_ms {walls!r} (median {wall!r}); profiled: device busy {busy!r} ms in "
             f"{n_dev} device events, {n_launch} launch calls ([launch calls, stage calls] by stage "

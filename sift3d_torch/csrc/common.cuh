@@ -32,6 +32,31 @@ __device__ __forceinline__ void interp_coord(float c, int dim, int& i, float& w)
   interp_bin(c - 0.5f, dim, i, w);
 }
 
+// ---- the quadratic refinement (K2, the fused canonical kernels) ----
+
+// kernels/extrema.py _det3: det [[p1 p2 p3], [q1 q2 q3], [1 1 1]]. An
+// explicit fmaf fuses under -fmad=false and rounds once, as
+// numerics.fma_exact does.
+__device__ __forceinline__ float det3(float p1, float p2, float p3, float q1, float q2, float q3) {
+  float t = fmaf(p1, q2, -(p1 * q3));
+  t = fmaf(-p2, q1, t);
+  t = fmaf(p3, q1, t);
+  t = fmaf(p2, q3, t);
+  return fmaf(-p3, q2, t);
+}
+
+// kernels/extrema.py quadratic_interp_1d.
+__device__ __forceinline__ float quadratic_interp(float flo, float fc, float fhi, float xlo, float xc,
+                                                  float xhi) {
+  const float a1 = xlo * xlo, a2 = xc * xc, a3 = xhi * xhi;
+  const float det = det3(a1, a2, a3, xlo, xc, xhi);
+  const float detx = det3(flo, fc, fhi, xlo, xc, xhi);
+  const float dety = det3(a1, a2, a3, flo, fc, fhi);
+  const bool valid = det != 0.0f && detx != 0.0f;
+  const float denom = valid ? -2.0f * detx : 1.0f;
+  return valid ? dety / denom : xc;
+}
+
 // ---- the 11^3 samplers (K2, K4), patch_cuda's plain versions' order ----
 
 // The trilinear value at corner p (lower corner of the 2x2x2 cell, plane
@@ -194,6 +219,16 @@ __device__ __forceinline__ bool in_sphere(int i) {
   const int x = i % kPatchDim - kPatchRad;
   return z * z + y * y + x * x < kPatchRad * kPatchRad;
 }
+
+constexpr int sphere_count() {
+  int n = 0;
+  for (int z = -kPatchRad; z <= kPatchRad; ++z)
+    for (int y = -kPatchRad; y <= kPatchRad; ++y)
+      for (int x = -kPatchRad; x <= kPatchRad; ++x) n += z * z + y * y + x * x < kPatchRad * kPatchRad;
+  return n;
+}
+constexpr int kSphereV = sphere_count();  // 485 in-sphere voxels
+static_assert(kSphereV == 485, "the in-sphere voxels of an 11^3 patch");
 
 // ---- the 11^3 blur (K7's small-volume kernel, the fused BRIEF kernel) ----
 

@@ -57,6 +57,31 @@
 // of a warp arg-max with no block barrier. The three kernels share one
 // body, templated on where it stops, so on the same rows K9's histogram is
 // K3's and the top-k of K9's peak plane is K3's output bit for bit.
+//
+// The fused canonical stage (sift3d_canonical, two launches) runs the same
+// body on points it forms in shared memory. It replaces the eager chain
+// around K3 in sift3d_torch.pipeline.features.canonical_stage_plain
+// (sphere_edges, splat_coords, hist_tops, the perpendicular projection,
+// _norm_or_x, Gram-Schmidt and the cross product: about 800 launch calls
+// a call and one host sync), the JAX package's features.canonical_stage
+// (sift3d/pipeline/features.py:526-657) around smooth_histogram_topk.
+//   A, one block per row: the row's normalized patch into shared memory,
+//     its 485 in-sphere gradients in ascending flat index, their
+//     magnitudes sqrt(fma(gz, gz, fma(gy, gy, gx * gx))) as weights and
+//     unit directions e * 5 + 5 as bin coordinates; the body's top K1; per
+//     slot the quadratic vertex, the 0.8 threshold and _norm_or_x: p1 and
+//     its flag (& kvalid) in device scratch.
+//   B, one block per (row, primary) slot: a dead slot writes zero frames;
+//     a live one rebuilds the row's directions (cheaper than storing
+//     [C, 3, 485]), projects them perpendicular to p1, runs the body for
+//     the top K2, the 0.5 threshold, the vertex, Gram-Schmidt against p1
+//     and the cross product, and writes all K2 frames of the slot.
+// Stream order hands A's scratch to B: no nonzero and no host sync between
+// them. Every multiply-add the plain version fuses (numerics.fma_exact) is
+// an fmaf; sqrtf and / round correctly; -fmad=false keeps the rest
+// separately rounded; so each output equals the plain stage's bit for bit.
+// What bounds it: the body, once a row and once a live slot; a row's
+// directions and frames are a few hundred operations beside it.
 
 #include "common.cuh"
 
@@ -75,17 +100,37 @@ static_assert(125 <= kChunk * kPad &&
 
 enum Mode { kSplat, kPeaks, kTopk };  // where the body stops
 
+// Where a row's V points come from: row c of the [C, V] arrays in device
+// memory (K3, K8, K9), or the fused canonical kernels' points in shared
+// memory. coord(a, v) is point v's bin coordinate on axis a (0 = x, 1 = y,
+// 2 = z), weight(v) its weight.
+struct RowPoints {
+  const float* __restrict__ cx;
+  const float* __restrict__ cy;
+  const float* __restrict__ cz;
+  const float* __restrict__ w;
+  size_t row;  // c * V
+  __device__ __forceinline__ float coord(int a, int v) const {
+    return (a == 0 ? cx : (a == 1 ? cy : cz))[row + v];
+  }
+  __device__ __forceinline__ float weight(int v) const { return w[row + v]; }
+};
+
+struct SharedPoints {
+  const float (*p)[sift3d::kSphereV];  // [4][V]: x, y, z, weight
+  __device__ __forceinline__ float coord(int a, int v) const { return p[a][v]; }
+  __device__ __forceinline__ float weight(int v) const { return p[3][v]; }
+};
+
 // kSplat writes the histogram to hist_out; kPeaks writes it and the peak
 // plane to hist_out / pk_out (each [C, 1331]); kTopk writes out [C, k, 16].
-template <int M>
-__device__ __forceinline__ void hist_body(const float* __restrict__ cx,
-                                          const float* __restrict__ cy,
-                                          const float* __restrict__ cz,
-                                          const float* __restrict__ w,
-                                          const float* __restrict__ band,
+// c: the row's index in the outputs; band: [11, 11], in device or shared
+// memory.
+template <int M, class Points>
+__device__ __forceinline__ void hist_body(const Points pts, const float* __restrict__ band,
                                           float* __restrict__ hist_out,
                                           float* __restrict__ pk_out,
-                                          float* __restrict__ out, int V, int k) {
+                                          float* __restrict__ out, int c, int V, int k) {
   using namespace sift3d;
   constexpr int P = kPatchDim;
   constexpr int PP = P * P;
@@ -100,10 +145,8 @@ __device__ __forceinline__ void hist_body(const float* __restrict__ cx,
   __shared__ int meta[kChunk];
   __shared__ int live_s[kThreads / 32][kChunk];  // per warp: the points it adds
   __shared__ float hist[kPatchVox];
-  const int c = blockIdx.x;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const size_t row = (size_t)c * V;
   for (int i = tid; i < PP; i += kThreads) band_s[i] = band[i];
   for (int i = tid; i < 2 * (kChunk + 1); i += kThreads) fxy[i / (kChunk + 1)][P][i % (kChunk + 1)] = 0.0f;
 
@@ -121,7 +164,7 @@ __device__ __forceinline__ void hist_body(const float* __restrict__ cx,
     __syncthreads();  // band_s ready / previous chunk consumed
     if (tid < nv) {  // thread v stages point v: its three factor rows
       const int v = tid;
-      const float wv = w[row + v0 + v];
+      const float wv = pts.weight(v0 + v);
       int y_lo = P, y_hi = -1;
       bool z_any = false, finite = true;
       float fz[kPad];
@@ -129,7 +172,7 @@ __device__ __forceinline__ void hist_body(const float* __restrict__ cx,
       for (int a = 0; a < 3; ++a) {
         int i0;
         float w0;
-        interp_bin((a == 0 ? cx : (a == 1 ? cy : cz))[row + v0 + v], P, i0, w0);
+        interp_bin(pts.coord(a, v0 + v), P, i0, w0);
         const float w1 = 1.0f - w0;
 #pragma unroll
         for (int o = 0; o < P; ++o) {
@@ -290,14 +333,16 @@ __global__ void __launch_bounds__(kThreads)
 hist_topk_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
                  const float* __restrict__ cz, const float* __restrict__ w,
                  const float* __restrict__ band, float* __restrict__ out, int V, int k) {
-  hist_body<kTopk>(cx, cy, cz, w, band, nullptr, nullptr, out, V, k);
+  hist_body<kTopk>(RowPoints{cx, cy, cz, w, (size_t)blockIdx.x * V}, band, nullptr, nullptr, out,
+                   blockIdx.x, V, k);
 }
 
 __global__ void __launch_bounds__(kThreads)
 splat_histogram_raw_kernel(const float* __restrict__ cx, const float* __restrict__ cy,
                            const float* __restrict__ cz, const float* __restrict__ w,
                            const float* __restrict__ band, float* __restrict__ hist, int V) {
-  hist_body<kSplat>(cx, cy, cz, w, band, hist, nullptr, nullptr, V, 0);
+  hist_body<kSplat>(RowPoints{cx, cy, cz, w, (size_t)blockIdx.x * V}, band, hist, nullptr, nullptr,
+                    blockIdx.x, V, 0);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -305,7 +350,188 @@ smooth_histogram_peaks_kernel(const float* __restrict__ cx, const float* __restr
                               const float* __restrict__ cz, const float* __restrict__ w,
                               const float* __restrict__ band, float* __restrict__ hist,
                               float* __restrict__ pk, int V) {
-  hist_body<kPeaks>(cx, cy, cz, w, band, hist, pk, nullptr, V, 0);
+  hist_body<kPeaks>(RowPoints{cx, cy, cz, w, (size_t)blockIdx.x * V}, band, hist, pk, nullptr,
+                    blockIdx.x, V, 0);
+}
+
+// ---- the fused canonical stage: features.canonical_stage_plain ----
+
+constexpr int kMaxSlots = sift3d::kPatchVox / kLanes;  // 83: the top-k rows reuse the patch's stage
+
+// The orientation histograms' blur band, passed by value (no copy to the
+// device).
+struct Band {
+  float v[sift3d::kPatchDim * sift3d::kPatchDim];
+};
+
+// What both launches share: the row's patch (then its top-k rows), its
+// in-sphere voxels in ascending flat index (np.nonzero(sphere_mask().ravel())),
+// the points' bin coordinates and weights, and the band.
+struct CanonicalStage {
+  float p[sift3d::kPatchVox];
+  float pts[4][sift3d::kSphereV];
+  short sphere[sift3d::kSphereV];
+  float band[sift3d::kPatchDim * sift3d::kPatchDim];
+};
+
+// Load row c's patch and list the in-sphere voxels (warp 0); ends with a
+// barrier.
+__device__ __forceinline__ void load_row(CanonicalStage& st, const float* __restrict__ pn, size_t c) {
+  using namespace sift3d;
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int i = tid; i < kPatchVox; i += kThreads) st.p[i] = pn[c * kPatchVox + i];
+  if (tid < 32) {
+    int n = 0;
+    for (int base = 0; base < kPatchVox; base += 32) {
+      const int b = base + lane;
+      const bool in = b < kPatchVox && in_sphere(b);
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (in) st.sphere[n + __popc(m & ((1u << lane) - 1u))] = (short)b;
+      n += __popc(m);
+    }
+  }
+  __syncthreads();
+}
+
+// sphere_edges at voxel i: the unit gradient direction e (x, y, z) and the
+// weight, its magnitude (0 where not > 0).
+__device__ __forceinline__ void sphere_edge(const float* p, int i, float (&e)[3], float& w) {
+  float g[3];
+  sift3d::patch_gradient(p, i, g[0], g[1], g[2]);
+  const float mag = sqrtf(fmaf(g[2], g[2], fmaf(g[1], g[1], g[0] * g[0])));
+  w = mag > 0.0f ? mag : 0.0f;
+  const float d = mag > 0.0f ? mag : 1.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) e[a] = g[a] / d;
+}
+
+// features._fdot3(a, b): fma(a_z, b_z, fma(a_y, b_y, a_x * b_x)).
+__device__ __forceinline__ float fdot3(const float (&a)[3], const float (&b)[3]) {
+  return fmaf(a[2], b[2], fmaf(a[1], b[1], a[0] * b[0]));
+}
+
+// features._norm_or_x in place: v / sqrt(v . v), (1, 0, 0) where v . v is
+// not > 0.
+__device__ __forceinline__ void norm_or_x(float (&v)[3]) {
+  const float ss = fdot3(v, v);
+  const float n = sqrtf(ss > 0.0f ? ss : 1.0f);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) v[a] = ss > 0.0f ? v[a] / n : (a == 0 ? 1.0f : 0.0f);
+}
+
+// features.hist_tops on one top-k row o[16]: the peak's quadratic vertex on
+// each axis, less rad (features.canonical_stage_plain's itp - rad).
+__device__ __forceinline__ void peak_vertex(const float* o, float (&d)[3]) {
+  using namespace sift3d;
+  const int flat = (int)o[7];
+  const int pp = flat / kLanes;
+  const int pc[3] = {flat % kLanes, pp % kPatchDim, pp / kPatchDim};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float cf = (float)pc[a];
+    d[a] = quadratic_interp(o[1 + 2 * a], o[0], o[2 + 2 * a], cf - 1.0f, cf, cf + 1.0f) - (float)kPatchRad;
+  }
+}
+
+// Top-k slot s of a row's histogram is a peak at or above thr times the
+// strongest (strict < breaks, MultiScale.cpp:2889) and above 0.
+__device__ __forceinline__ bool live_peak(const float* tops, int s, float thr) {
+  const float v = tops[s * kLanes];
+  return isfinite(v) && v >= thr * tops[0] && v > 0.0f;
+}
+
+// Launch A, one block per row c: the primary histogram over the row's
+// in-sphere unit gradients, its top K1 peaks, the 0.8 threshold and
+// _norm_or_x of each vertex: p1 [C, K1, 3] and live [C, K1] (valid1 &
+// kvalid) for launch B.
+__global__ void __launch_bounds__(kThreads)
+canonical_primary_kernel(const float* __restrict__ pn, const bool* __restrict__ kvalid, const Band band,
+                         float* __restrict__ p1, bool* __restrict__ live, float thr, int K1) {
+  using namespace sift3d;
+  __shared__ CanonicalStage st;
+  const size_t c = blockIdx.x;
+  const int tid = threadIdx.x;
+  if (kvalid != nullptr && !kvalid[c]) {  // the whole block: no secondaries for a dead row
+    for (int s = tid; s < K1; s += kThreads) live[c * K1 + s] = false;
+    return;
+  }
+  for (int i = tid; i < kPatchDim * kPatchDim; i += kThreads) st.band[i] = band.v[i];
+  load_row(st, pn, c);
+  for (int j = tid; j < kSphereV; j += kThreads) {
+    float e[3];
+    sphere_edge(st.p, st.sphere[j], e, st.pts[3][j]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) st.pts[a][j] = e[a] * (float)kPatchRad + (float)kPatchRad;
+  }
+  hist_body<kTopk>(SharedPoints{st.pts}, st.band, nullptr, nullptr, st.p, 0, kSphereV, K1);
+  __syncthreads();
+  if (tid < K1) {
+    float d[3];
+    peak_vertex(st.p + tid * kLanes, d);
+    norm_or_x(d);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) p1[(c * K1 + tid) * 3 + a] = d[a];
+    live[c * K1 + tid] = live_peak(st.p, tid, thr);
+  }
+}
+
+// Launch B, one block per (row, primary) slot: a dead slot writes zero
+// frames and no valid secondary; a live one splats the row's unit
+// gradients projected perpendicular to its primary p1 (the (1, 0, 0)
+// fallback where the projection vanishes), takes the top K2 peaks and the
+// 0.5 threshold, orthogonalizes each vertex against p1, renormalizes and
+// writes the frames [p1; p2; p1 x p2] of all K2 secondaries, invalid ones
+// included (canonical_stage_plain's ori[sidx] = orir).
+__global__ void __launch_bounds__(kThreads)
+canonical_secondary_kernel(const float* __restrict__ pn, const Band band, const float* __restrict__ p1,
+                           const bool* __restrict__ live, float* __restrict__ ori,
+                           bool* __restrict__ ori_valid, float thr, int K1, int K2) {
+  using namespace sift3d;
+  __shared__ CanonicalStage st;
+  const size_t slot = blockIdx.x;
+  const int tid = threadIdx.x;
+  float* frames = ori + slot * K2 * 9;
+  if (!live[slot]) {
+    for (int i = tid; i < K2 * 9; i += kThreads) frames[i] = 0.0f;
+    for (int s = tid; s < K2; s += kThreads) ori_valid[slot * K2 + s] = false;
+    return;
+  }
+  const float q1[3] = {p1[slot * 3], p1[slot * 3 + 1], p1[slot * 3 + 2]};
+  for (int i = tid; i < kPatchDim * kPatchDim; i += kThreads) st.band[i] = band.v[i];
+  load_row(st, pn, slot / K1);
+  for (int j = tid; j < kSphereV; j += kThreads) {
+    float e[3];
+    sphere_edge(st.p, st.sphere[j], e, st.pts[3][j]);
+    const float par = fdot3(e, q1);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) e[a] = fmaf(-par, q1[a], e[a]);
+    norm_or_x(e);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) st.pts[a][j] = e[a] * (float)kPatchRad + (float)kPatchRad;
+  }
+  hist_body<kTopk>(SharedPoints{st.pts}, st.band, nullptr, nullptr, st.p, 0, kSphereV, K2);
+  __syncthreads();
+  if (tid < K2) {
+    float d[3];
+    peak_vertex(st.p + tid * kLanes, d);
+    norm_or_x(d);
+    const float par = fdot3(d, q1);
+    float q2[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) q2[a] = fmaf(-par, q1[a], d[a]);
+    norm_or_x(q2);
+    // features._fcross3(p1, p2): each a_i b_j - a_j b_i with the first product fused
+    const float q3[3] = {fmaf(q1[1], q2[2], -(q1[2] * q2[1])), fmaf(q1[2], q2[0], -(q1[0] * q2[2])),
+                         fmaf(q1[0], q2[1], -(q1[1] * q2[0]))};
+    float* f = frames + tid * 9;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      f[a] = q1[a];
+      f[3 + a] = q2[a];
+      f[6 + a] = q3[a];
+    }
+    ori_valid[slot * K2 + tid] = live_peak(st.p, tid, thr);
+  }
 }
 
 }  // namespace
@@ -329,4 +555,23 @@ extern "C" int sift3d_smooth_histogram_peaks(const float* cx, const float* cy, c
                                              float* pk, int C, int V, int device, void* stream) {
   SIFT3D_LAUNCH(device, smooth_histogram_peaks_kernel, dim3(C), dim3(kThreads), stream, cx, cy,
                 cz, w, band, hist, pk, V);
+}
+
+// band: [11, 11] in host memory; kvalid: [C] or null; p1 [C, K1, 3] and
+// live [C, K1]: scratch between the two launches; out ori [C, K1, K2, 3, 3],
+// ori_valid [C, K1, K2]. K1, K2 in [1, 83].
+extern "C" int sift3d_canonical(const float* pn, const bool* kvalid, const float* band, float* p1,
+                                bool* live, float* ori, bool* ori_valid, float thr1, float thr2,
+                                int C, int K1, int K2, int device, void* stream) {
+  if (K1 < 1 || K1 > kMaxSlots || K2 < 1 || K2 > kMaxSlots) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Band b;
+  for (int i = 0; i < sift3d::kPatchDim * sift3d::kPatchDim; ++i) b.v[i] = band[i];
+  const cudaStream_t s = (cudaStream_t)stream;
+  canonical_primary_kernel<<<C, kThreads, 0, s>>>(pn, kvalid, b, p1, live, thr1, K1);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  canonical_secondary_kernel<<<C * K1, kThreads, 0, s>>>(pn, b, p1, live, ori, ori_valid, thr2, K1, K2);
+  return (int)cudaGetLastError();
 }

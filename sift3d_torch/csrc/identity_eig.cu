@@ -44,29 +44,6 @@ namespace {
 
 using namespace sift3d;
 
-// kernels/extrema.py _det3: det [[p1 p2 p3], [q1 q2 q3], [1 1 1]]. An
-// explicit fmaf fuses under -fmad=false and rounds once, as
-// numerics.fma_exact does.
-__device__ __forceinline__ float det3(float p1, float p2, float p3, float q1, float q2, float q3) {
-  float t = fmaf(p1, q2, -(p1 * q3));
-  t = fmaf(-p2, q1, t);
-  t = fmaf(p3, q1, t);
-  t = fmaf(p2, q3, t);
-  return fmaf(-p3, q2, t);
-}
-
-// kernels/extrema.py quadratic_interp_1d.
-__device__ __forceinline__ float quadratic_interp(float flo, float fc, float fhi, float xlo, float xc,
-                                                  float xhi) {
-  const float a1 = xlo * xlo, a2 = xc * xc, a3 = xhi * xhi;
-  const float det = det3(a1, a2, a3, xlo, xc, xhi);
-  const float detx = det3(flo, fc, fhi, xlo, xc, xhi);
-  const float dety = det3(a1, a2, a3, flo, fc, fhi);
-  const bool valid = det != 0.0f && detx != 0.0f;
-  const float denom = valid ? -2.0f * detx : 1.0f;
-  return valid ? dety / denom : xc;
-}
-
 struct V3 {
   float x, y, z;
 };

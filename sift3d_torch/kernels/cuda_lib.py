@@ -57,6 +57,10 @@ SIGNATURES = {
     "sift3d_extrema_mask": (_P, _P, _I, _I, _I, _I, _I, _I),
     # cx, cy, cz, w [C,V], band [11,11], out [C,k,16], C, V, k
     "sift3d_hist_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I),
+    # the fused canonical stage: pn [C,11,11,11], kvalid [C] bool (null: every row), band [11,11] f32 in
+    # host memory, scratch p1 [C,K1,3] f32 and live [C,K1] bool, out ori [C,K1,K2,3,3] f32 and
+    # ori_valid [C,K1,K2] bool, thr1, thr2, C, K1, K2
+    "sift3d_canonical": (_P,) * 7 + (_F, _F, _I, _I, _I),
     # cx, cy, cz, w [C,V], band [11,11] (identity), hist [C,1331], C, V
     "sift3d_splat_histogram_raw": (_P, _P, _P, _P, _P, _P, _I, _I),
     # cx, cy, cz, w [C,V], band [11,11], hist [C,1331], pk [C,1331], C, V

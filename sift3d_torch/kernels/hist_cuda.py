@@ -1,8 +1,9 @@
-"""K3, K8 and K9: orientation histograms (CUDA kernels + plain forms).
+"""K3, K8, K9 and the fused canonical stage: orientation histograms (CUDA
+kernels + plain forms).
 
 K3 :func:`hist_topk` replaces the Pallas kernel ``sift3d.kernels.
 hist_pallas.smooth_histogram_topk``: the blurred histogram's top-k strict
-peaks, the main path's. K8 :func:`splat_histogram_raw` replaces
+peaks. K8 :func:`splat_histogram_raw` replaces
 ``splat_histogram_raw`` (the unblurred trilinear splat) and K9
 :func:`smooth_histogram_peaks` replaces ``smooth_histogram_peaks`` (the
 blurred histogram and its strict-peak plane); neither has a caller on the
@@ -10,6 +11,10 @@ main path, as in the JAX package. All three are entries of
 ``csrc/hist_topk.cu``, one body that stops at the splat (K8), at the peak
 plane (K9) or after the top-k (K3). :func:`smooth_histogram`, K8 followed
 by the blur (K7), is the counterpart of ``features._smooth_histogram``.
+:func:`canonical_orientations` runs the same body inside the fused
+canonical stage (the main path's, on a CUDA tensor), whose plain version is
+``sift3d_torch.pipeline.features.canonical_stage_plain``; K3 keeps its
+entry point.
 
 K3's output layout is the Pallas kernel's, so one consumer
 (``sift3d_torch.pipeline.features.hist_tops``) serves both versions:
@@ -178,6 +183,49 @@ def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     return out
 
 
+MAX_SLOTS = PATCH_DIM**3 // LANES  # 83: the fused kernels keep a row's top-k in its patch's place
+
+
+def canonical_orientations(pn, band, k1: int, k2: int, thr1: float, thr2: float, kvalid=None):
+    """The fused canonical stage (``sift3d_canonical``: two launches, one
+    block a row, then one a (row, primary) slot; see ``csrc/hist_topk.cu``):
+    ``features.canonical_stage_plain`` on a CUDA tensor, bit for bit.
+
+    pn [C, 11, 11, 11] f32 normalized patches; band [11, 11] f32 in host
+    memory (passed by value); k1, k2 in [1, 83] primary and secondary
+    peaks; thr1, thr2 their thresholds; kvalid: optional [C] bool survivor
+    mask. Returns (ori [C, k1, k2, 3, 3], ori_valid [C, k1, k2]). One call
+    counts one launch of the pair and waits for nothing."""
+    if not (1 <= k1 <= MAX_SLOTS and 1 <= k2 <= MAX_SLOTS):
+        raise ValueError(f"k1 and k2 must be in [1, {MAX_SLOTS}], got {k1} and {k2}")
+    if pn.dtype != torch.float32 or pn.shape[1:] != (PATCH_DIM,) * 3:
+        raise ValueError(f"pn must be [C, 11, 11, 11] float32, got {tuple(pn.shape)} {pn.dtype}")
+    c = pn.shape[0]
+    if kvalid is not None and (kvalid.dtype != torch.bool or kvalid.shape != (c,)):
+        raise ValueError(f"kvalid must be [{c}] bool, got {tuple(kvalid.shape)} {kvalid.dtype}")
+    if (band.device.type != "cpu" or band.dtype != torch.float32 or band.shape != (PATCH_DIM, PATCH_DIM)
+            or not band.is_contiguous()):
+        raise ValueError(f"band must be a contiguous [11, 11] float32 tensor in host memory, got "
+                         f"{tuple(band.shape)} {band.dtype} on {band.device}")
+    cuda_lib.require_cuda(pn, "pn", torch.float32, 4)
+    dev = pn.device
+    if kvalid is not None:
+        kvalid = kvalid.contiguous()
+        cuda_lib.require_cuda(kvalid, "kvalid", torch.bool, 1)
+        if kvalid.device != dev:
+            raise ValueError(f"kvalid must be on {dev}")
+    ori = torch.empty((c, k1, k2, 3, 3), dtype=torch.float32, device=dev)
+    ori_valid = torch.empty((c, k1, k2), dtype=torch.bool, device=dev)
+    if c == 0:
+        return ori, ori_valid
+    p1 = torch.empty((c, k1, 3), dtype=torch.float32, device=dev)
+    live = torch.empty((c, k1), dtype=torch.bool, device=dev)
+    cuda_lib.launch("sift3d_canonical", pn, kvalid, band, p1, live, ori, ori_valid, float(thr1), float(thr2),
+                    c, k1, k2, device=dev)
+    cuda_lib.count_launch(canonical_orientations)
+    return ori, ori_valid
+
+
 @functools.lru_cache(maxsize=None)
 def _identity_band(device: torch.device) -> torch.Tensor:
     return torch.eye(PATCH_DIM, dtype=torch.float32, device=device)
@@ -255,5 +303,6 @@ def smooth_histogram(cx, cy, cz, w, blur_sigma: float) -> torch.Tensor:
 
 
 hist_topk.launches = 0
+canonical_orientations.launches = 0
 splat_histogram_raw_bins.launches = 0
 smooth_histogram_peaks_bins.launches = 0

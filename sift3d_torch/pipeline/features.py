@@ -22,10 +22,11 @@ between is row-wise (features.py:315-370). The reference call stack
 
 On a CUDA device three kernels carry the stage, and their plain versions
 run on the CPU: the fused K2 (:func:`gather_eig`: refinement, identity
-patch, normalization, structure tensor, eigen test), the histogram top-k
-K3, and the fused K4 (``patch_cuda.rotated_goh`` and ``goh``: rotated
-patch and GoH descriptor; ``rotated_brief`` and ``brief`` for the BRIEF
-family).
+patch, normalization, structure tensor, eigen test), the fused canonical
+stage (:func:`canonical_stage`: both orientation histograms, their peaks
+and the frames, ``hist_cuda.canonical_orientations``), and the fused K4
+(``patch_cuda.rotated_goh`` and ``goh``: rotated patch and GoH
+descriptor; ``rotated_brief`` and ``brief`` for the BRIEF family).
 
 The stage also runs on a Z slab of an octave (the Z-sharded path,
 ``sift3d_torch.dist.spatial``): the Gaussian stack and the DoGs may each
@@ -37,6 +38,7 @@ gz_shift / g_dims, features.py:314-400, 806-920, in global terms).
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -48,7 +50,7 @@ from sift3d_torch.core.numerics import fma_exact, sqrt
 from sift3d_torch.kernels import cuda_lib
 from sift3d_torch.kernels.extrema import quadratic_interp_1d
 from sift3d_torch.kernels.gauss import gaussian_kernel_1d
-from sift3d_torch.kernels.hist_cuda import hist_band, hist_topk
+from sift3d_torch.kernels.hist_cuda import canonical_orientations, hist_band, hist_topk
 from sift3d_torch.kernels.patch import (
     PATCH_DIM,
     PATCH_RAD,
@@ -65,6 +67,7 @@ from sift3d_torch.kernels.patch_cuda import (
     rotated_goh,
     sample_identity_plain,
 )
+from sift3d_torch.utils.timing import TRACER
 
 
 def candidate_union(mask: torch.Tensor):
@@ -307,7 +310,30 @@ def ori_hist_band(cfg: SiftConfig, device) -> torch.Tensor:
     return torch.from_numpy(hist_band(taps)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _host_ori_band(sigma: float) -> torch.Tensor:
+    """The band in host memory, made once a sigma and only read: the fused
+    kernels take it by value."""
+    return torch.from_numpy(hist_band(gaussian_kernel_1d(sigma, 0.01)))
+
+
 def canonical_stage(pn, cfg: SiftConfig, kvalid=None):
+    """Canonical orientations: :func:`canonical_stage_plain` for CPU
+    tensors, the fused pair of launches (``hist_cuda.canonical_orientations``,
+    bit for bit the same) for CUDA tensors, with no host sync. Arguments and
+    results as :func:`canonical_stage_plain`. Counts the rows in
+    ``canonical_rows`` while ``TRACER`` records."""
+    TRACER.count("canonical_rows", pn.shape[0])
+    if cuda_lib.route(pn) == "plain":
+        return canonical_stage_plain(pn, cfg, kvalid)
+    ori, ori_valid = canonical_orientations(
+        pn.contiguous(), _host_ori_band(cfg.ori_hist_blur_sigma), cfg.max_primary_orientations,
+        cfg.max_secondary_orientations, cfg.ori_peak_threshold, cfg.ori_2nd_peak_threshold, kvalid,
+    )
+    return dict(ori=ori, ori_valid=ori_valid)
+
+
+def canonical_stage_plain(pn, cfg: SiftConfig, kvalid=None):
     """Canonical orientations from blurred 11^3 direction histograms
     (``features.canonical_stage``, features.py:526-657).
 
@@ -428,6 +454,7 @@ def emit_candidates(
     with timer.stage("canonical"):
         o = canonical_stage(pn, cfg)
         row, slot = reoriented_slots(o["ori_valid"], cfg)
+    TRACER.count("reoriented_rows", row.shape[0])
     s = cfg.max_primary_orientations * cfg.max_secondary_orientations
     ori_r = o["ori"].reshape(-1, s, 3, 3)[row, slot]
     glvl = lvl
