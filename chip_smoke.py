@@ -109,8 +109,8 @@ Phases, each printing one line:
      locations and scales, identical descriptors, byte-identical .key files,
      and for --debug-pgm the same PGM files byte for byte;
   9. Z-sharded extraction (extract_features_spatial, the CLI's --spatial)
-     on a 4-shard mesh on cuda:0, on the -2+ grid (the 2 GiB rule shards
-     octave 0) and on the T1 grid with 3 sharded octaves (halos relayed
+     on a 4-shard mesh on cuda:0, on the -2+ grid (prescale "double"; the
+     2 GiB rule shards octave 0) and on the T1 grid with 3 sharded octaves (halos relayed
      over several shards), against extract_features on the card: the
      sharded octaves' gathered Gaussian stacks and masks bit-equal, equal
      counts, locations, scales, flags, orientations, eigenvalues and
@@ -1246,6 +1246,41 @@ def write_aniso(path: str, data, seed: int) -> None:
                 qto_xyz=affine(seed, [-31.5, 20.25, -12.0]), sto_xyz=affine(seed + 1, [10.0, -20.0, 30.0]))
 
 
+# the C entries (cuda_lib.SIGNATURES) whose launches each label of the
+# launch counts and of the kernel table counts (cuda_lib keeps them): M1's
+# int8 route is its main kernel and the slices' merge, beside the pre-pass
+# it shares with M2's int8 route (knn_prep_i8), and M3's scores and inlier
+# masks are the two modes of one entry (hough)
+ENTRIES = {
+    "blur3d": ("sift3d_blur3d",), "dogs_extrema": ("sift3d_dogs_extrema",),
+    "extrema_mask": ("sift3d_extrema_mask",), "gather_eig": ("sift3d_identity_eig",),
+    "canonical": ("sift3d_canonical",), "rotated_goh": ("sift3d_rotated_goh",), "goh": ("sift3d_goh",),
+    "rotated_brief": ("sift3d_rotated_brief",), "brief": ("sift3d_brief",),
+    "sample_rotated": ("sift3d_sample_rotated",), "double_size_batch": ("sift3d_double_size",),
+    "hist_topk": ("sift3d_hist_topk",), "splat_histogram_raw": ("sift3d_splat_histogram_raw",),
+    "smooth_histogram_peaks": ("sift3d_smooth_histogram_peaks",),
+    "knn_prep_i8": ("sift3d_knn_prep_i8",), "knn_topk_int8": ("sift3d_knn_topk_i8", "sift3d_knn_merge"),
+    "knn_topk_f32": ("sift3d_knn_topk",), "ratio_match_int8": ("sift3d_ratio_match_i8",),
+    "ratio_match_f32": ("sift3d_ratio_match",), "hough": ("sift3d_hough",),
+}
+# the main path's kernels, and the matching kernels of featmatch
+EXTRACTION = ("blur3d", "dogs_extrema", "gather_eig", "canonical", "rotated_goh", "goh")
+MATCH = ("knn_prep_i8", "knn_topk_int8", "knn_topk_f32", "ratio_match_int8", "ratio_match_f32", "hough")
+
+
+def launch_counts(labels) -> dict:
+    """{label: the launches of its ENTRIES so far}, from cuda_lib's counts."""
+    from sift3d_torch.kernels.cuda_lib import launches
+
+    return {k: sum(launches(e) for e in ENTRIES[k]) for k in labels}
+
+
+def launches_since(before: dict) -> dict:
+    """{label: its launches since `before`, a launch_counts}."""
+    now = launch_counts(before)
+    return {k: now[k] - before[k] for k in before}
+
+
 def run_cli(argv, workdir: str, device=None):
     """featextract.main(argv) in workdir (where --debug-pgm writes), its
     output swallowed; returns (rc, wall ms)."""
@@ -1271,9 +1306,9 @@ GOH_ONLY, BRIEF_ONLY = ("rotated_goh", "goh"), ("rotated_brief", "brief")
 BRIEF_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 
 
-def cli_full_width(vol_np, wrappers, tmp: str):
-    """Phase 7: the CLI on the card with the flags at full width. wrappers
-    holds the main path's kernels, the fused BRIEF kernels, K10
+def cli_full_width(vol_np, labels, tmp: str):
+    """Phase 7: the CLI on the card with the flags at full width. labels
+    names the main path's kernels, the fused BRIEF kernels, K10
     (double_size_batch) and K4's patch mode (sample_rotated, on no path):
     the GoH flags must launch all but the BRIEF kernels, -b, -br and -bn
     all but the GoH ones, -2+ alone K10, none K4's patch mode. Then the
@@ -1291,11 +1326,10 @@ def cli_full_width(vol_np, wrappers, tmp: str):
                        ("-bn", t1)):
         walls = []
         for _ in range(2):
-            for w in wrappers.values():
-                w.launches = 0
+            before = launch_counts(labels)
             rc, ms = run_cli([flag, path, "out.key"], tmp)
             walls.append(ms)
-            launches = {name: w.launches for name, w in wrappers.items()}
+            launches = launches_since(before)
             if rc != 0:
                 raise AssertionError(f"the CLI failed with {flag}: rc {rc}")
         with open(os.path.join(tmp, "out.key")) as f:
@@ -1330,7 +1364,7 @@ def same_bytes(a: str, b: str) -> bool:
         return fa.read() == fb.read()
 
 
-def cli_card_vs_cpu(wrappers, tmp: str) -> None:
+def cli_card_vs_cpu(labels, tmp: str) -> None:
     """Phase 8: every flag, the CLI on the card against the CLI on the CPU,
     on tests/test_torch_cli_flags.py's 64^3-grid volumes."""
     import numpy as np
@@ -1352,10 +1386,9 @@ def cli_card_vs_cpu(wrappers, tmp: str) -> None:
              ("-b", "cube64"), ("-br", "cube64"), ("-bn", "cube64"), ("--debug-pgm", "cube64")]
     for flag, name in cells:
         dirs = {who: tempfile.mkdtemp(prefix=f"{who}_", dir=tmp) for who in ("card", "cpu")}
-        for w in wrappers.values():
-            w.launches = 0
+        before = launch_counts(labels)
         rc_card, _ = run_cli([flag, paths[name], "out.key"], dirs["card"])
-        launched = sum(w.launches for w in wrappers.values())
+        launched = sum(launches_since(before).values())
         rc_cpu, _ = run_cli([flag, paths[name], "out.key"], dirs["cpu"], device="cpu")
         card, cpu = (keyfile.read_text(os.path.join(dirs[w], "out.key"))[0] for w in ("card", "cpu"))
         same = len(card) == len(cpu) > 0
@@ -1393,32 +1426,26 @@ def dogs_stack_rows(vol, cfg):
 
 def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
     """Phase 9: Z-sharded extraction on a 4-shard mesh on cuda:0 against
-    extract_features on the card. Returns the launches of the -2+ run."""
+    extract_features on the card, both with prescale "double" (-2+) and
+    without. Returns the launches of the -2+ run."""
     import numpy as np
     import torch
 
     from sift3d_torch.dist import halo, spatial
     from sift3d_torch.dist.mesh import make_mesh
-    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
-    from sift3d_torch.kernels.resample import double_size
-    from sift3d_torch.pipeline import features, pyramid
+    from sift3d_torch.pipeline import extract, pyramid
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import repeatability, synthetic_volume
 
-    wrappers = {
-        "extrema_mask": extrema_cuda.extrema_mask,
-        "blur3d": gauss_cuda.blur3d,
-        "dogs_extrema": extrema_cuda.dogs_extrema,
-        "gather_eig": features.gather_eig,
-        "canonical": hist_cuda.canonical_orientations,
-        "rotated_goh": patch_cuda.rotated_goh,
-        "goh": patch_cuda.goh,
-    }
+    labels = ("extrema_mask",) + EXTRACTION
     n = 4
     mesh = make_mesh(n, ["cuda:0"])
     dev = mesh[0]
     first = None
-    for label, img, scale, octaves in (("-2+", double_size(vol), 0.5, None), ("T1", vol, 1.0, 3)):
+    for label, prescale, octaves in (("-2+", "double", None), ("T1", None, 3)):
+        # the extraction grid and its initial image scale, as the pipeline makes them
+        img = extract.prescaled_volume(vol, prescale, dev)
+        scale = extract._initial_scale(prescale)
         zd, yd, xd = img.shape
         k = spatial.sharded_octave_count(img.shape, cfg, octaves)
         n_oct = pyramid.num_octaves(img.shape, cfg)
@@ -1442,23 +1469,20 @@ def spatial_runs(vol, cfg, key_rows_2p: int) -> dict:
         for rep in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            single = extract_features(img, cfg, dev, initial_image_scale=scale)
+            single = extract_features(vol, cfg, dev, prescale=prescale)
             torch.cuda.synchronize()
             single_walls.append((time.perf_counter() - t0) * 1e3)
         single_peak = torch.cuda.max_memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         walls = []
         for rep in range(2):
-            for w in wrappers.values():
-                w.launches = 0
+            before = launch_counts(labels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            feats = spatial.extract_features_spatial(
-                img, mesh, cfg, sharded_octaves=octaves, initial_image_scale=scale
-            )
+            feats = spatial.extract_features_spatial(vol, mesh, cfg, sharded_octaves=octaves, prescale=prescale)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            launches = {name: w.launches for name, w in wrappers.items()}
+            launches = launches_since(before)
         peak = torch.cuda.max_memory_allocated()
         tz, halo_planes = zp // n, spatial.sampling_halo(cfg)
         # one shard's octave-0 pyramid (6 Gaussian + 5 DoG f32 + 3 mask
@@ -1741,10 +1765,10 @@ def compare_matching(feats, cfg, dev):
             queries.append((x[: n // 4], f"a quarter shard, {n // 4} queries x {n} rows x {c}"))
         for q, shape in queries:
             wrapper = knn_cuda.knn_topk_int8 if int8 else knn_cuda.knn_topk_f32
-            before = wrapper.launches
+            before = launch_counts(("knn_prep_i8", "knn_topk_int8") if int8 else ("knn_topk_f32",))
             dist, _ = wrapper(q, x, k)
             torch.cuda.synchronize()
-            launches = wrapper.launches - before
+            launches = sum(launches_since(before).values())
             slices = knn_cuda.int8_plan(q.shape[0], n, knn_cuda.int8_places(dev, c, k))[0] if int8 else 1
             if q is not x and slices < 2:
                 raise AssertionError(f"M1 did not cut the database for the quarter shard: {slices} slice")
@@ -1779,13 +1803,12 @@ def compare_matching(feats, cfg, dev):
     # of the same shape (its f32 route); each with its route and launches
     for name, qr, dr in (("ratio_match_int8", qt, dbt), ("ratio_match_f32", qt + 0.25, dbt + 0.25)):
         int8 = knn_cuda.int8_route(qr, dr)
-        wrapper = pairwise.ratio_rows_int8 if int8 else pairwise.ratio_rows_f32
         if int8 != (name == "ratio_match_int8"):
             raise AssertionError(f"M2 took the {'int8' if int8 else 'f32'} route for {name}")
-        before = wrapper.launches
+        before = launch_counts(("knn_prep_i8", name) if int8 else (name,))
         pairwise.ratio_rows(qr, dr, xyzt, st, thr, shift)
         torch.cuda.synchronize()
-        per_call = wrapper.launches - before
+        per_call = sum(launches_since(before).values())
         n_bytes = nq * 64 * 4 + nd * (64 * 4 + 16) + nq * 12
         # the wrapper's times hold its route check (a host read); the launches alone:
         alone = (f"; its pre-pass and kernel without the route check "
@@ -1904,34 +1927,25 @@ def ratio_edges(dev, thr: float, shift: float) -> None:
         raise AssertionError(f"M2 differs from its plain version at an edge shape: {errs}")
 
 
-def match_wrappers():
-    from sift3d_torch.kernels import knn_cuda
-    from sift3d_torch.match import hough, pairwise
-
-    return {"knn_topk_int8": knn_cuda.knn_topk_int8, "knn_topk_f32": knn_cuda.knn_topk_f32,
-            "ratio_match_int8": pairwise.ratio_rows_int8, "ratio_match_f32": pairwise.ratio_rows_f32,
-            "hough_scores": hough.hough_scores, "hough_inliers": hough.hough_inliers}
-
-
-def launch_timer(wrappers):
+def launch_timer(labels):
     """A tracer (``utils.timing.Tracer``; record inside its ``record()``)
-    that also counts each wrapper's launches in each stage; milliseconds()
-    gives each stage's host ms."""
+    that also counts the launches of each label (``ENTRIES``) in each
+    stage; milliseconds() gives each stage's host ms."""
     from sift3d_torch.utils.timing import Tracer
 
     class LaunchTimer(Tracer):
         def __init__(self):
             super().__init__()
-            self.launches = {}
+            self.by_stage = {}
 
         @contextlib.contextmanager
         def stage(self, name: str):
-            before = {k: w.launches for k, w in wrappers.items()}
+            before = launch_counts(labels)
             with super().stage(name):
                 yield
-            got = self.launches.setdefault(name, dict.fromkeys(wrappers, 0))
-            for k, w in wrappers.items():
-                got[k] += w.launches - before[k]
+            got = self.by_stage.setdefault(name, dict.fromkeys(labels, 0))
+            for k, n in launches_since(before).items():
+                got[k] += n
 
         def milliseconds(self):
             return {name: t.host_ms for name, t in self.totals().items()}
@@ -1978,15 +1992,13 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
     os.remove(os.path.join(tmp, "plain.key.txt"))
     rows = rows[::2]
     extract_s = time.perf_counter() - t0
-    wrappers = match_wrappers()
     here = os.getcwd()
     os.chdir(tmp)
     def run(flags):
         """One featmatch call: (wall ms, [stage ms, launches] by stage,
-        [translation error, |scale - 1|] of every pair)."""
-        for w in wrappers.values():
-            w.launches = 0
-        timer = launch_timer(wrappers)
+        [translation error, |scale - 1|] of every pair, launches)."""
+        before = launch_counts(MATCH)
+        timer = launch_timer(MATCH)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()), timer.record():
@@ -2000,20 +2012,19 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         for name, (dz, dy, dx) in zip(names[1:], shifts):
             ts = SimilarityTransform.read_matrix(f"{name}.trans.txt")
             errs.append([float(np.linalg.norm(ts.trans - np.array([-dx, -dy, -dz]))), abs(ts.scale - 1.0)])
-        stages = {k: [round(v, 3), timer.launches[k]] for k, v in timer.milliseconds().items()}
-        return wall, stages, np.asarray(errs, np.float64)
+        stages = {k: [round(v, 3), timer.by_stage[k]] for k, v in timer.milliseconds().items()}
+        return wall, stages, np.asarray(errs, np.float64), launches_since(before)
 
     def outputs():
         return {f: open(f, "rb").read() for f in os.listdir(".") if f not in names and f != "_command.txt"}
 
     try:
-        hough_wall, _, hough_errs = run(["--all-to-all"])
+        hough_wall, _, hough_errs, _ = run(["--all-to-all"])
         snapshot = outputs()
         walls = []
         for _ in range(2):
-            wall, stages, errs = run(["--all-to-all", "--refine"])
+            wall, stages, errs, launches = run(["--all-to-all", "--refine"])
             walls.append(wall)
-        launches = {k: w.launches for k, w in wrappers.items()}
         native_files = outputs()
         # one more call with the plain .key reader and writer and match files
         native_io = (keyfile.read_text, keyfile.write_text, featmatch.write_match_file)
@@ -2021,7 +2032,7 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         keyfile.write_text = functools.partial(native_io[1], use_native=False)
         featmatch.write_match_file = functools.partial(native_io[2], use_native=False)
         try:
-            plain_wall, plain_stages, _ = run(["--all-to-all", "--refine"])
+            plain_wall, plain_stages, _, _ = run(["--all-to-all", "--refine"])
         finally:
             keyfile.read_text, keyfile.write_text, featmatch.write_match_file = native_io
         plain_same = outputs() == native_files
@@ -2057,17 +2068,16 @@ def featmatch_full_width(base, cfg, dev, tmp: str) -> dict:
         f"without --refine (the winning hypothesis alone): wall_ms {hough_wall!r}, max translation error "
         f"{float(hough_errs[:, 0].max())!r} voxel (median {float(np.median(hough_errs[:, 0]))!r}), "
         f"max |scale - 1| {float(hough_errs[:, 1].max())!r}; the hough stage (every pair's Hough vote): "
-        f"{stages['hough'][0]!r} ms, M3 launches {hough_launches['hough_scores']} (scores) + "
-        f"{hough_launches['hough_inliers']} (inlier masks), one profiled call: {hough_device}"
+        f"{stages['hough'][0]!r} ms, M3 launches {hough_launches['hough']} (the scores, then the inlier "
+        f"masks), one profiled call: {hough_device}"
     )
-    print(f"phase10 M2 on featmatch's .key rows: launches of the int8 route {launches['ratio_match_int8']} "
-          f"(its pre-pass and kernel, {stages['ratio_match'][1]['ratio_match_int8']} in the ratio_match stage), "
-          f"of the f32 route {launches['ratio_match_f32']}")
+    print(f"phase10 M2 on featmatch's .key rows: launches of the int8 route's kernel {launches['ratio_match_int8']} "
+          f"({stages['ratio_match'][1]['ratio_match_int8']} in the ratio_match stage, beside "
+          f"{stages['ratio_match'][1]['knn_prep_i8']} of the pre-pass), of the f32 route {launches['ratio_match_f32']}")
     # the f32 routes of M1 and M2 take no row a featmatch call makes
     if errs[:, 0].max() > 1.0 or errs[:, 1].max() > 0.05 or min(
             v for k, v in launches.items() if not k.endswith("_f32")) <= 0 or max(
-            launches["knn_topk_f32"], launches["ratio_match_f32"]) > 0 or hough_launches["hough_scores"] != 1 or (
-            hough_launches["hough_inliers"] != 1):
+            launches["knn_topk_f32"], launches["ratio_match_f32"]) > 0 or hough_launches["hough"] != 2:
         raise AssertionError(f"featmatch on the card missed a shift or a kernel: {errs.tolist()}, {launches}")
     return launches, names, snapshot
 
@@ -2086,12 +2096,11 @@ def knn_f32_entry(cfg, dev) -> int:
 
     rows = np.random.default_rng(11).standard_normal((4000, 64)).astype(np.float32) * 20
     x = torch.as_tensor(rows, device=dev)
-    wrappers = (knn_cuda.knn_topk_f32, knn_cuda.knn_topk_int8)
-    for w in wrappers:
-        w.launches = 0
+    before = launch_counts(("knn_topk_f32", "knn_prep_i8", "knn_topk_int8"))
     got = knn_search(rows, rows, cfg.knn_neighbors, device=dev)
     torch.cuda.synchronize()
-    f32, int8 = (w.launches for w in wrappers)
+    got_launches = launches_since(before)
+    f32, int8 = got_launches["knn_topk_f32"], got_launches["knn_prep_i8"] + got_launches["knn_topk_int8"]
     want = knn_cuda.knn_topk_plain(x, x, cfg.knn_neighbors)
     exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     print(f"phase10 knn_search on {rows.shape[0]} float rows (the f32 route's entry point): launches f32 {f32}, "
@@ -2115,12 +2124,11 @@ def ratio_f32_entry(feats, cfg, dev) -> int:
     rng = np.random.default_rng(12)
     fs = feats.select(np.arange(len(feats)))
     fs.desc = (fs.desc + rng.normal(0, 0.5, fs.desc.shape)).astype(np.float32)
-    wrappers = (pairwise.ratio_rows_f32, pairwise.ratio_rows_int8)
-    for w in wrappers:
-        w.launches = 0
+    before = launch_counts(("ratio_match_f32", "knn_prep_i8", "ratio_match_int8"))
     got = pairwise.ratio_match(fs, fs, cfg, device=dev)
     torch.cuda.synchronize()
-    f32, int8 = (w.launches for w in wrappers)
+    got_launches = launches_since(before)
+    f32, int8 = got_launches["ratio_match_f32"], got_launches["knn_prep_i8"] + got_launches["ratio_match_int8"]
     want = pairwise.ratio_match(fs, fs, cfg, device="cpu")
     exact = np.array_equal(got.db_idx, want.db_idx) and np.array_equal(got.ratio, want.ratio)
     print(f"phase10 ratio_match on {len(fs)} float rows (the f32 route's entry point): launches f32 {f32}, "
@@ -2159,7 +2167,6 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
         nifti.write(os.path.join(keys, "v.nii"), vol)
         with contextlib.redirect_stdout(io.StringIO()):
             featextract.main([os.path.join(keys, "v.nii"), os.path.join(keys, name)])
-    wrappers = match_wrappers()
     here = os.getcwd()
     for flags in FEATMATCH_FLAG_SETS:
         argv = flags + ([] if "-f" in flags else names)
@@ -2170,8 +2177,7 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
                 shutil.copy(os.path.join(keys, name), dirs[who])
             with open(os.path.join(dirs[who], "list.txt"), "w") as f:
                 f.write("\n".join(names) + "\n")
-            for w in wrappers.values():
-                w.launches = 0
+            before = launch_counts(MATCH)
             os.chdir(dirs[who])
             try:
                 with contextlib.redirect_stdout(io.StringIO()):
@@ -2179,7 +2185,7 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
             finally:
                 os.chdir(here)
             if who == "card":
-                launches = {k: w.launches for k, w in wrappers.items()}
+                launches = launches_since(before)
             if rc != 0:
                 raise AssertionError(f"featmatch {flags} failed on the {who}: rc {rc}")
         files = sorted(f for f in os.listdir(dirs["cpu"]) if f not in names and f != "list.txt")
@@ -2188,8 +2194,9 @@ def featmatch_card_vs_cpu(tmp: str) -> None:
         print(f"phase11 featmatch {' '.join(flags) or '(no flags)'}: {len(files)} output files, the same names "
               f"{same}, byte-identical card = CPU {not differ} {differ}; card launches {json.dumps(launches)}")
         want_knn = "--all-to-all" in flags
-        if not same or differ or launches["ratio_match_int8"] <= 0 or launches["hough_scores"] <= 0 or (
-                launches["hough_inliers"] <= 0) or (want_knn and launches["knn_topk_int8"] <= 0):
+        # M3: the scores, then the inlier masks
+        if not same or differ or launches["ratio_match_int8"] <= 0 or launches["hough"] < 2 or (
+                want_knn and launches["knn_topk_int8"] <= 0):
             raise AssertionError(f"featmatch {flags}: the card disagrees with the CPU or ran no kernel")
 
 
@@ -2216,7 +2223,6 @@ def batched_runs(base, cfg):
     from sift3d_torch.pipeline.extract import extract_features, extract_features_many
 
     dev = base.device
-    wrappers = extraction_wrappers()
     vols, _ = shifted_volumes(base)
     singles = [extract_features(v, cfg, device=dev) for v in vols]
     n_oct = pyramid.num_octaves(tuple(base.shape), cfg)
@@ -2231,14 +2237,13 @@ def batched_runs(base, cfg):
         batch = vols[:nb]
         got = call(batch)  # the warm-up, and the check
         same = [equal(g, w) for g, w in zip(got, singles)]
-        for w in wrappers.values():
-            w.launches = 0
+        before = launch_counts(EXTRACTION)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         call(batch)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = launches_since(before)
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2283,15 +2288,6 @@ def batched_runs(base, cfg):
 PLACEMENT_ENTRIES = 4
 
 
-def extraction_wrappers():
-    from sift3d_torch.kernels import extrema_cuda, gauss_cuda, hist_cuda, patch_cuda
-    from sift3d_torch.pipeline import features
-
-    return {"blur3d": gauss_cuda.blur3d, "dogs_extrema": extrema_cuda.dogs_extrema,
-            "gather_eig": features.gather_eig, "canonical": hist_cuda.canonical_orientations,
-            "rotated_goh": patch_cuda.rotated_goh, "goh": patch_cuda.goh}
-
-
 def same_features(a, b) -> bool:
     import numpy as np
 
@@ -2313,7 +2309,6 @@ def placement_runs(base, cfg, walls_of, want) -> dict:
 
     dev = base.device
     vols, _ = shifted_volumes(base)
-    wrappers = extraction_wrappers()
     meshes = {f"{PLACEMENT_ENTRIES} x {dev}": [dev] * PLACEMENT_ENTRIES}
     if torch.cuda.device_count() > 1:
         meshes["every card"] = None
@@ -2321,14 +2316,13 @@ def placement_runs(base, cfg, walls_of, want) -> dict:
     for label, mesh in meshes.items():
         got = extract_features_batch(vols, mesh, cfg)  # the warm-up, and the check
         same = [same_features(g, w) for g, w in zip(got, want)]
-        for w in wrappers.values():
-            w.launches = 0
+        before = launch_counts(EXTRACTION)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         extract_features_batch(vols, mesh, cfg)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated(dev)
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = launches_since(before)
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2370,10 +2364,10 @@ def sharded_knn_run(feats, cfg, dev) -> int:
     chunk = -(-x.shape[0] // len(mesh))
     slices = knn_cuda.int8_plan(chunk, x.shape[0], knn_cuda.int8_places(dev, x.shape[1], k))[0]
     per_entry = 2 + (slices > 1)
-    knn_cuda.knn_topk_int8.launches = 0
+    before = launch_counts(("knn_prep_i8", "knn_topk_int8"))
     got = sharded_knn(x, x, k, mesh)
     torch.cuda.synchronize()
-    launches = knn_cuda.knn_topk_int8.launches
+    launches = sum(launches_since(before).values())
     exact = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     sharded_ms = median_ms(lambda: sharded_knn(x, x, k, mesh))
     single_ms = median_ms(lambda: knn_cuda.knn_topk(x, x, k))
@@ -2396,15 +2390,12 @@ def shard_match_run(keys_dir: str, names, snapshot, dev, tmp: str) -> None:
 
     from sift3d_torch.cli import featmatch
 
-    wrappers = match_wrappers()
     here = os.getcwd()
     for label, mesh in ((f"{PLACEMENT_ENTRIES} x {dev}", [dev] * PLACEMENT_ENTRIES), ("every card", None)):
         work = tempfile.mkdtemp(prefix="shard_match_", dir=tmp)
         for name in names:
             shutil.copy(os.path.join(keys_dir, name), work)
-        for w in wrappers.values():
-            w.launches = 0
-        timer = launch_timer(wrappers)
+        timer = launch_timer(MATCH)
         os.chdir(work)
         try:
             with contextlib.redirect_stdout(io.StringIO()), timer.record():
@@ -2416,12 +2407,12 @@ def shard_match_run(keys_dir: str, names, snapshot, dev, tmp: str) -> None:
         files = sorted(f for f in os.listdir(work) if f not in names and f != "_command.txt")
         differ = [f for f in files if f not in snapshot or not same_bytes_data(os.path.join(work, f), snapshot[f])]
         missing = sorted(set(snapshot) - set(files))
-        stages = {k: [round(v, 3), timer.launches[k]] for k, v in timer.milliseconds().items()}
+        stages = {k: [round(v, 3), timer.by_stage[k]] for k, v in timer.milliseconds().items()}
         print(f"phase13 featmatch --all-to-all --shard-match over {label} on phase 10's {len(names)} .key files: "
               f"rc {rc}; {len(files)} output files, byte-identical to phase 10's --all-to-all "
               f"{not differ and not missing} (differ {differ}, missing {missing}); group_vote "
               f"{timer.milliseconds().get('group_vote')!r} ms, [stage ms, launches] {json.dumps(stages)}")
-        if rc != 0 or differ or missing or timer.launches["group_vote"]["knn_topk_int8"] <= 0:
+        if rc != 0 or differ or missing or timer.by_stage["group_vote"]["knn_topk_int8"] <= 0:
             raise AssertionError(f"featmatch --shard-match over {label} differs from phase 10's files")
 
 
@@ -2544,10 +2535,10 @@ def sample_rotated_entry(vol, feats, cfg) -> int:
     lvl = torch.as_tensor(sel % 3 + 1, dtype=torch.int32, device=dev)
     rows = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=dev)
             for a in (feats.xyz[sel], feats.scale[sel], feats.ori[sel])]
-    patch_cuda.sample_rotated.launches = 0
+    before = launch_counts(("sample_rotated",))
     patches = patch_cuda.sample_rotated(gstack, lvl, *rows)
     torch.cuda.synchronize()
-    n = patch_cuda.sample_rotated.launches
+    n = launches_since(before)["sample_rotated"]
     ok = bool(torch.isfinite(patches).all())
     print(f"phase3 K4's patch mode entry point (sample_rotated) on {len(sel)} reoriented T1 rows: patches "
           f"{tuple(patches.shape)}, finite {ok}; launches {n}")
@@ -2568,7 +2559,7 @@ def main() -> int:
     from sift3d_torch.core.config import DEFAULT_CONFIG as cfg
     from sift3d_torch.core.device import resolve_device
     from sift3d_torch.io import keyfile, native, nifti
-    from sift3d_torch.kernels import cuda_lib, gauss_cuda, hist_cuda, patch_cuda, resample_cuda
+    from sift3d_torch.kernels import cuda_lib, hist_cuda
     from sift3d_torch.pipeline import features
     from sift3d_torch.pipeline.extract import extract_features
     from sift3d_torch.utils.synthetic import (
@@ -2618,16 +2609,14 @@ def main() -> int:
     kernels += compare_batched(vol, cfg)
     kernels += compare_matching(extract_features(vol, cfg, device=dev), cfg, dev)
 
-    wrappers = extraction_wrappers()
     extract_features(vol, cfg, device=dev)  # warm-up (cuBLAS handles, caches)
-    for w in wrappers.values():
-        w.launches = 0
+    before = launch_counts(EXTRACTION)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with TRACER.record(dev):
         feats = extract_features(vol, cfg, device=dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = launches_since(before)
     n_reor = int(feats.is_reoriented.sum())
     # [host ms, stream ms] of each span (the tracer waits for nothing)
     totals = TRACER.totals()
@@ -2658,16 +2647,12 @@ def main() -> int:
     e3, wgt = features.sphere_edges(pn[in_bounds & eig_keep])
     centred = [u + 0.5 for u in features.splat_coords(e3)]  # the JAX functions' 0.5 centres
     band = features.ori_hist_band(cfg, dev)
-    entry = {"hist_topk": hist_cuda.hist_topk, "splat_histogram_raw": hist_cuda.splat_histogram_raw_bins,
-             "smooth_histogram_peaks": hist_cuda.smooth_histogram_peaks_bins,
-             "blur3d": gauss_cuda.blur3d}
-    for w in entry.values():
-        w.launches = 0
+    before = launch_counts(("hist_topk", "splat_histogram_raw", "smooth_histogram_peaks", "blur3d"))
     tops = hist_cuda.hist_topk(*features.splat_coords(e3), wgt, band, cfg.max_primary_orientations)
     smoothed = hist_cuda.smooth_histogram(*centred, wgt, cfg.ori_hist_blur_sigma)
     hb, pk = hist_cuda.smooth_histogram_peaks(*centred, wgt, band)
     torch.cuda.synchronize()
-    entry_launches = {name: w.launches for name, w in entry.items()}
+    entry_launches = launches_since(before)
     fin = bool(torch.isfinite(smoothed).all() and torch.isfinite(hb).all()
                and torch.equal(torch.isfinite(pk), pk > -torch.inf) and torch.isfinite(tops[:, 0, 0]).any())
     print(
@@ -2697,7 +2682,7 @@ def main() -> int:
     else:
         busy, span, n_dev, n_launch, per_name, per_stage, _ = prof
         ours = {}
-        for name in wrappers:
+        for name in EXTRACTION:
             # K7 launches blur_xy_kernel and blur_col_kernel, or blur3d_small_kernel
             hits = [v for k, v in per_name.items() if any(tag in k for tag in TRACE_NAMES.get(name, (f"::{name}_kernel",)))]
             ours[name] = [sum(n for n, _ in hits), round(sum(ms for _, ms in hits), 4)]
@@ -2744,11 +2729,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         nii = os.path.join(tmp, "v.nii")
         nifti.write(nii, small)
-        for w in wrappers.values():
-            w.launches = 0
+        before = launch_counts(EXTRACTION)
         with contextlib.redirect_stdout(io.StringIO()):
             rc_card = featextract.main([nii, os.path.join(tmp, "card.key")])
-            cli_launches = {name: w.launches for name, w in wrappers.items()}
+            cli_launches = launches_since(before)
             rc_cpu = featextract.main([nii, os.path.join(tmp, "cpu.key")], device="cpu")
         card_key, cpu_key = (keyfile.read_text(os.path.join(tmp, f))[0] for f in ("card.key", "cpu.key"))
         with open(os.path.join(tmp, "card.key")) as a, open(os.path.join(tmp, "cpu.key")) as b:
@@ -2770,19 +2754,19 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         rows_of, launches_of = cli_full_width(
-            vol_np, dict(wrappers, rotated_brief=patch_cuda.rotated_brief, brief=patch_cuda.brief,
-                         double_size_batch=resample_cuda.double_size_batch,
-                         sample_rotated=patch_cuda.sample_rotated), tmp)
+            vol_np, EXTRACTION + ("rotated_brief", "brief", "double_size_batch", "sample_rotated"), tmp)
     # the fused BRIEF kernels run on the BRIEF path only: their launches are
     # -bn's; K10 runs on -2+ alone
     launches.update(rotated_brief=launches_of["-bn"]["rotated_brief"], brief=launches_of["-bn"]["brief"],
                     double_size_batch=launches_of["-2+"]["double_size_batch"])
     with tempfile.TemporaryDirectory() as tmp:
-        cli_card_vs_cpu(wrappers, tmp)
+        cli_card_vs_cpu(EXTRACTION, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]
     with tempfile.TemporaryDirectory() as keys_dir:  # phase 10's .key files, read again by phase 13
         match_launches, key_names, snapshot = featmatch_full_width(vol, cfg, dev, keys_dir)
         launches.update(match_launches)
+        # M3's scores and inlier masks are one entry's two modes
+        launches.update(hough_scores=match_launches["hough"], hough_inliers=match_launches["hough"])
         launches["knn_topk_f32"] = knn_f32_entry(cfg, dev)
         launches["ratio_match_f32"] = ratio_f32_entry(feats, cfg, dev)
         with tempfile.TemporaryDirectory() as tmp:

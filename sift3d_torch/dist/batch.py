@@ -28,9 +28,9 @@ from sift3d_torch.pipeline import pyramid
 from sift3d_torch.pipeline.extract import extract_features_many
 
 
-def initial_blur_batch(vols: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG, initial_image_scale: float = 1.0):
+def initial_blur_batch(vols: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG):
     """The initial blur of a [B, Z, Y, X] batch (one K7 launch on the card)."""
-    return pyramid.initial_blur_core(vols, cfg, initial_image_scale)
+    return pyramid.initial_blur_core(vols, cfg)
 
 
 def octave_step_batch(bases: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG):
@@ -47,8 +47,8 @@ def on_device(dev: torch.device):
 
 
 def extract_features_batch(
-    vols: Sequence, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG,
-    initial_image_scale: float = 1.0, descriptor: str = "goh", prescale: Optional[str] = None,
+    vols: Sequence, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG, *,
+    descriptor: str = "goh", prescale: Optional[str] = None,
 ) -> List[FeatureSet]:
     """Extract features from [Z, Y, X] volumes (numpy arrays or tensors)
     over a mesh; returns one FeatureSet per volume, in input order, each
@@ -58,9 +58,8 @@ def extract_features_batch(
     repeat one; None means every CUDA device, and raises without one. The
     volumes are dealt round-robin over the first min(len(mesh), len(vols))
     entries; each entry runs ``extract_features_many`` on its group in a
-    host thread of its own. An entry's error is raised here.
-    initial_image_scale, descriptor and prescale as in
-    ``extract_features``."""
+    host thread of its own. An entry's error is raised here. descriptor
+    and prescale as in ``extract_features``."""
     mesh = make_mesh(devices=mesh)
     if not len(vols):
         return []
@@ -69,8 +68,7 @@ def extract_features_batch(
     def run(dev: torch.device, ids: List[int]) -> List[FeatureSet]:
         with on_device(dev):
             return extract_features_many(
-                [vols[i] for i in ids], cfg, device=dev,
-                initial_image_scale=initial_image_scale, descriptor=descriptor, prescale=prescale,
+                [vols[i] for i in ids], cfg, device=dev, descriptor=descriptor, prescale=prescale,
             )
 
     groups = [list(range(e, len(vols), n)) for e in range(n)]

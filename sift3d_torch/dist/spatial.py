@@ -21,7 +21,9 @@ mesh (``dist.mesh``); the first octaves run sharded end to end:
 
 Once the octave base has halved ``sharded_octaves`` times, it is gathered
 on mesh[0] and the remaining octaves run the single-device pipeline with
-``pre_blurred=True``. Equal to ``extract_features`` on the whole volume
+``pre_blurred=True``. Under ``prescale`` the volume is prescaled on mesh[0]
+by ``pipeline/extract.py`` (``prescaled_volume``) and its extraction grid is
+sharded. Equal to ``extract_features`` on the whole volume
 (tests/test_torch_spatial*.py).
 """
 
@@ -40,8 +42,7 @@ from sift3d_torch.dist.halo import blur3d_sharded, exchange_halo_z, planes, shar
 from sift3d_torch.dist.mesh import make_mesh
 from sift3d_torch.kernels.extrema_cuda import extrema_mask
 from sift3d_torch.kernels.resample import subsample_2x
-from sift3d_torch.pipeline import features, pyramid
-from sift3d_torch.pipeline.extract import extract_features, extract_octaves, octave_features
+from sift3d_torch.pipeline import extract, features, pyramid
 from sift3d_torch.utils.timing import TRACER, Tracer
 
 WORKING_SET_LIMIT = 2 * 1024**3  # bytes of an octave's 11 f32 volumes that shard it
@@ -84,10 +85,11 @@ class ShardedOctave(NamedTuple):
 
 
 def initial_blur_spatial(
-    shards: Sequence[torch.Tensor], cfg: SiftConfig, true_z: int, initial_image_scale: float = 1.0,
+    shards: Sequence[torch.Tensor], cfg: SiftConfig, true_z: int, scale: float = 1.0,
 ) -> List[torch.Tensor]:
-    """Raise a Z-sharded input to sigma_base (``pyramid.initial_blur_core``)."""
-    sigma = initial_blur_sigma(cfg, initial_image_scale)
+    """Raise a Z-sharded input of initial image scale `scale` to sigma_base
+    (``pyramid.initial_blur_core``)."""
+    sigma = initial_blur_sigma(cfg, scale)
     return _zero_tail(blur3d_sharded(shards, sigma, cfg.blur_precision), true_z)
 
 
@@ -178,7 +180,7 @@ def sharded_octave_count(shape, cfg: SiftConfig, sharded_octaves: Optional[int] 
 
 def extract_features_spatial(
     img, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG, *,
-    sharded_octaves: Optional[int] = None, initial_image_scale: float = 1.0,
+    sharded_octaves: Optional[int] = None, prescale: Optional[str] = None,
     descriptor: str = "goh", timer: Optional[Tracer] = None,
     on_gstack: Optional[Callable[[int, torch.Tensor], None]] = None,
 ) -> FeatureSet:
@@ -186,31 +188,28 @@ def extract_features_spatial(
     Z-sharded over `mesh` (``make_mesh``'s device list; None: every CUDA
     device, raising without one).
 
-    The first `sharded_octaves` octaves run sharded (None: those whose
-    working set exceeds 2 GiB); the rest run on mesh[0]. With no sharded
-    octave or a one-device mesh this is ``extract_features`` on mesh[0].
-    initial_image_scale, descriptor, timer and on_gstack as there
-    (on_gstack gets each sharded octave's stack gathered on mesh[0]).
-    Returns what ``extract_features`` returns for the whole volume.
+    The first `sharded_octaves` octaves of the extraction grid run sharded
+    (None: those whose working set exceeds 2 GiB); the rest run on
+    mesh[0]. With no sharded octave or a one-device mesh this is
+    ``extract_features`` on mesh[0]. prescale, descriptor, timer and
+    on_gstack as there (on_gstack gets each sharded octave's stack
+    gathered on mesh[0]). Returns what ``extract_features`` returns for the
+    whole volume, in the input volume's voxels.
     """
     mesh = make_mesh() if mesh is None else [torch.device(d) for d in mesh]
     mesh = [resolve_device(d) for d in mesh]
     timer = timer or TRACER
-    if not isinstance(img, torch.Tensor):
-        img = torch.from_numpy(np.array(img, np.float32))
-    vol = img.to(torch.float32)
-    if vol.ndim != 3:
-        raise ValueError(f"expected a [Z, Y, X] volume, got shape {tuple(vol.shape)}")
-    zd, yd, xd = vol.shape
+    scale = extract._initial_scale(prescale)
+    zd, yd, xd = extract.extraction_shape(extract._shape(img), prescale)
     n = len(mesh)
     n_oct = pyramid.num_octaves((zd, yd, xd), cfg)
     k_shard = sharded_octave_count((zd, yd, xd), cfg, sharded_octaves)
     if k_shard == 0 or n == 1:
-        return extract_features(
-            vol, cfg, mesh[0], timer, initial_image_scale=initial_image_scale,
-            descriptor=descriptor, on_gstack=on_gstack,
+        return extract.extract_features(
+            img, cfg, mesh[0], timer, prescale=prescale, descriptor=descriptor, on_gstack=on_gstack,
         )
 
+    vol = extract.prescaled_volume(img, prescale, mesh[0])
     # pad Z so every sharded octave shards and subsamples evenly
     mult = n * 2**k_shard
     zp = -(-zd // mult) * mult
@@ -219,7 +218,7 @@ def extract_features_spatial(
     base = shard_volume(vol, mesh)
     del vol
     with timer.stage("initial_blur"):
-        base = initial_blur_spatial(base, cfg, zd, initial_image_scale)
+        base = initial_blur_spatial(base, cfg, zd, scale)
     true_z = zd
     parts = []
     for octave in range(k_shard):
@@ -229,7 +228,7 @@ def extract_features_spatial(
             on_gstack(octave, planes(octv.gstack, 0, true_z, mesh[0]))
         rows = emit_octave_spatial(octv, cfg, true_z, timer, descriptor)
         if rows is not None:
-            parts.append(octave_features(rows, octave))
+            parts.append(extract.octave_features(rows, octave))
         base = octv.next_base
         true_z //= 2
         del octv
@@ -240,9 +239,9 @@ def extract_features_spatial(
         def tail_gstack(octave, gstack):
             on_gstack(k_shard + octave, gstack)
 
-        for octave, rows in extract_octaves(
+        for octave, rows in extract.extract_octaves(
             tail, cfg, mesh[0], timer, descriptor=descriptor, pre_blurred=True,
             on_gstack=None if on_gstack is None else tail_gstack,
         ):
-            parts.append(octave_features(rows, k_shard + octave))
-    return FeatureSet.concatenate(parts)
+            parts.append(extract.octave_features(rows, k_shard + octave))
+    return extract._in_input_voxels(FeatureSet.concatenate(parts), prescale)

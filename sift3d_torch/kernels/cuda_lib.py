@@ -14,7 +14,8 @@ objects into a temporary directory of its own before the library is
 renamed into place.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`launch` raises on anything but 0.
+``cudaGetLastError()``; :func:`launch` raises on anything but 0 and counts
+the entry's launches, which :func:`launches` reads.
 ``-fmad=false`` keeps every multiply and add separately rounded, in the
 order the plain PyTorch versions compute them, so kernel and plain version
 agree to the bit wherever their summation order agrees.
@@ -176,14 +177,17 @@ def build() -> pathlib.Path:
     return out
 
 
-_LIBRARY_LOCK = threading.Lock()
-_COUNT_LOCK = threading.Lock()
+# guards the library's load and the launch counts: kernels are launched
+# from several host threads at once (dist.batch), and += 1 is a read and a
+# write
+_LOCK = threading.Lock()
+_LAUNCHES = dict.fromkeys(SIGNATURES, 0)
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use; callable from any
     thread (the first caller builds, the others wait for it)."""
-    with _LIBRARY_LOCK:
+    with _LOCK:
         return _load()
 
 
@@ -198,21 +202,24 @@ def _load() -> ctypes.CDLL:
 
 
 def launch(name: str, *args, device: torch.device) -> None:
-    """Call C entry `name` on `device`'s current stream and check the
-    launch. Tensors in args are passed as their data pointers."""
+    """Call C entry `name` on `device`'s current stream, check the launch
+    and count it (:func:`launches`). Tensors in args are passed as their
+    data pointers. Every entry of SIGNATURES goes through here, the
+    occupancy query ``sift3d_knn_i8_blocks_per_sm`` too, and is counted
+    alike."""
     conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(device).cuda_stream
     err = getattr(library(), name)(*conv, device.index, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+    with _LOCK:
+        _LAUNCHES[name] += 1
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches``, the count a run reads to show that
-    it went through the kernel. Under a lock: wrappers run from several host
-    threads at once (``dist.batch``), and ``+= 1`` is a read and a write."""
-    with _COUNT_LOCK:
-        wrapper.launches += 1
+def launches(name: str) -> int:
+    """The launches of C entry `name` in this process so far: the count a
+    run reads to show that it went through the kernel."""
+    return _LAUNCHES[name]
 
 
 def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -108,7 +108,6 @@ def _launch_dogs(batch: torch.Tensor, geom: dict):
     if mask.numel():
         cuda_lib.launch("sift3d_dogs_extrema", batch, dogs, mask, b, z, y, x, geom["ty"], geom["zr"],
                         device=batch.device)
-        cuda_lib.count_launch(dogs_extrema)
     return dogs, mask
 
 
@@ -144,9 +143,4 @@ def _launch_mask(batch: torch.Tensor, geom: dict) -> torch.Tensor:
     if mask.numel():
         cuda_lib.launch("sift3d_extrema_mask", batch, mask, b, z, y, x, geom["ty"], geom["zr"],
                         device=batch.device)
-        cuda_lib.count_launch(extrema_mask)
     return mask
-
-
-dogs_extrema.launches = 0
-extrema_mask.launches = 0

@@ -133,8 +133,4 @@ def _launch(vol: torch.Tensor, taps: torch.Tensor, geom: dict) -> torch.Tensor:
     )
     r = taps.shape[0] // 2
     cuda_lib.launch("sift3d_blur3d", vol, out, tmp, taps, ints, r, *shape, device=vol.device)
-    cuda_lib.count_launch(blur3d)
     return out
-
-
-blur3d.launches = 0

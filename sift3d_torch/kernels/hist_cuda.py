@@ -179,7 +179,6 @@ def hist_topk(cx, cy, cz, w, band, k: int) -> torch.Tensor:
     cuda_lib.launch(
         "sift3d_hist_topk", cx, cy, cz, w, band, out, c, v_total, k, device=cx.device
     )
-    cuda_lib.count_launch(hist_topk)
     return out
 
 
@@ -195,7 +194,7 @@ def canonical_orientations(pn, band, k1: int, k2: int, thr1: float, thr2: float,
     memory (passed by value); k1, k2 in [1, 83] primary and secondary
     peaks; thr1, thr2 their thresholds; kvalid: optional [C] bool survivor
     mask. Returns (ori [C, k1, k2, 3, 3], ori_valid [C, k1, k2]). One call
-    counts one launch of the pair and waits for nothing."""
+    is one launch of ``sift3d_canonical`` (the pair) and waits for nothing."""
     if not (1 <= k1 <= MAX_SLOTS and 1 <= k2 <= MAX_SLOTS):
         raise ValueError(f"k1 and k2 must be in [1, {MAX_SLOTS}], got {k1} and {k2}")
     if pn.dtype != torch.float32 or pn.shape[1:] != (PATCH_DIM,) * 3:
@@ -222,7 +221,6 @@ def canonical_orientations(pn, band, k1: int, k2: int, thr1: float, thr2: float,
     live = torch.empty((c, k1), dtype=torch.bool, device=dev)
     cuda_lib.launch("sift3d_canonical", pn, kvalid, band, p1, live, ori, ori_valid, float(thr1), float(thr2),
                     c, k1, k2, device=dev)
-    cuda_lib.count_launch(canonical_orientations)
     return ori, ori_valid
 
 
@@ -255,7 +253,6 @@ def splat_histogram_raw_bins(cx, cy, cz, w) -> torch.Tensor:
     if c == 0:
         return hist
     cuda_lib.launch("sift3d_splat_histogram_raw", cx, cy, cz, w, band, hist, c, v_total, device=cx.device)
-    cuda_lib.count_launch(splat_histogram_raw_bins)
     return hist
 
 
@@ -273,7 +270,6 @@ def smooth_histogram_peaks_bins(cx, cy, cz, w, band):
     cuda_lib.launch(
         "sift3d_smooth_histogram_peaks", cx, cy, cz, w, band, hist, pk, c, v_total, device=cx.device
     )
-    cuda_lib.count_launch(smooth_histogram_peaks_bins)
     return hist, pk
 
 
@@ -300,9 +296,3 @@ def smooth_histogram(cx, cy, cz, w, blur_sigma: float) -> torch.Tensor:
     blur (K7) at blur_sigma with the histograms' 0.01 tap rule
     (``features._smooth_histogram``, ``hist_pallas.smooth_histogram_pallas``)."""
     return blur3d(splat_histogram_raw(cx, cy, cz, w), blur_sigma, 0.01)
-
-
-hist_topk.launches = 0
-canonical_orientations.launches = 0
-splat_histogram_raw_bins.launches = 0
-smooth_histogram_peaks_bins.launches = 0

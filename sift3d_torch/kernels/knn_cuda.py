@@ -206,11 +206,7 @@ def knn_topk_f32(q: torch.Tensor, db: torch.Tensor, k: int):
     if q.shape[0] == 0:
         return dist, idx
     cuda_lib.launch("sift3d_knn_topk", q, db, dist, idx, q.shape[0], db.shape[0], q.shape[1], k, device=q.device)
-    cuda_lib.count_launch(knn_topk_f32)
     return dist, idx
-
-
-knn_topk_f32.launches = 0
 
 
 def knn_topk_int8(q: torch.Tensor, db: torch.Tensor, k: int):
@@ -218,7 +214,7 @@ def knn_topk_int8(q: torch.Tensor, db: torch.Tensor, k: int):
     are integers in -128..127: raises ValueError for any others (int8_route,
     checked here). The plain version for CPU tensors; for CUDA tensors the
     pre-pass, the int8 kernel over int8_plan's database slices and, with
-    more than one, the merge: two or three launches, each counted."""
+    more than one, the merge: two or three launches."""
     if not int8_route(q, db):
         raise ValueError("M1's int8 route takes rows whose first 64 columns are integers in -128..127")
     return _int8(q, db, k)
@@ -240,23 +236,16 @@ def _int8(q: torch.Tensor, db: torch.Tensor, k: int):
     dn = torch.empty(npad, dtype=torch.float32, device=q.device)
     tail = torch.empty((npad, 3), dtype=torch.float32, device=q.device) if c > INT8_COLUMNS else None
     cuda_lib.launch("sift3d_knn_prep_i8", db, db8, dn, tail, n, npad, c, device=q.device)
-    cuda_lib.count_launch(knn_topk_int8)
     if s == 1:
         cuda_lib.launch("sift3d_knn_topk_i8", q, db8, dn, tail, dist, idx, None, None, nq, n, c, k, 1, rows,
                         device=q.device)
-        cuda_lib.count_launch(knn_topk_int8)
         return dist, idx
     part_d = torch.empty((s, nq, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((s, nq, k), dtype=torch.int32, device=q.device)
     cuda_lib.launch("sift3d_knn_topk_i8", q, db8, dn, tail, None, None, part_d, part_i, nq, n, c, k, s, rows,
                     device=q.device)
-    cuda_lib.count_launch(knn_topk_int8)
     cuda_lib.launch("sift3d_knn_merge", part_d, part_i, dist, idx, nq, s, k, device=q.device)
-    cuda_lib.count_launch(knn_topk_int8)
     return dist, idx
-
-
-knn_topk_int8.launches = 0
 
 
 def knn_topk(q: torch.Tensor, db: torch.Tensor, k: int):

@@ -159,7 +159,6 @@ def sample_rotated(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None) 
         "sift3d_sample_rotated", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
         depth, device=gstack.device,
     )
-    cuda_lib.count_launch(sample_rotated)
     return out
 
 
@@ -206,7 +205,6 @@ def goh(patches, out=None) -> torch.Tensor:
     out = _desc_out(patches.shape[0], patches.device, out)
     if patches.shape[0]:
         cuda_lib.launch("sift3d_goh", patches, out, patches.shape[0], device=patches.device)
-        cuda_lib.count_launch(goh)
     return out
 
 
@@ -230,7 +228,6 @@ def rotated_goh(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None, out
             "sift3d_rotated_goh", gstack, lvl, centers, scales, oris, out, r, nl, zd, yd, xd, z0,
             depth, device=gstack.device,
         )
-        cuda_lib.count_launch(rotated_goh)
     return out
 
 
@@ -280,7 +277,6 @@ def brief(patches, variant: str, method: int = 2, blur_sigma: float = 0.95, out=
     if patches.shape[0]:
         cuda_lib.launch("sift3d_brief", patches, flat, dist, taps, r, code, out, patches.shape[0],
                         device=patches.device)
-        cuda_lib.count_launch(brief)
     return out
 
 
@@ -308,12 +304,4 @@ def rotated_brief(gstack, lvl, centers, scales, oris, z0: int = 0, depth=None, v
             "sift3d_rotated_brief", gstack, lvl, centers, scales, oris, flat, dist, taps, radius, code, out, r,
             nl, zd, yd, xd, z0, depth, device=gstack.device,
         )
-        cuda_lib.count_launch(rotated_brief)
     return out
-
-
-sample_rotated.launches = 0
-goh.launches = 0
-rotated_goh.launches = 0
-brief.launches = 0
-rotated_brief.launches = 0

@@ -41,8 +41,4 @@ def double_size_batch(batch: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     if batch.numel() == 0:
         return out
     cuda_lib.launch("sift3d_double_size", batch, out, *batch.shape, device=batch.device)
-    cuda_lib.count_launch(double_size_batch)
     return out
-
-
-double_size_batch.launches = 0

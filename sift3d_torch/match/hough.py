@@ -177,7 +177,7 @@ def hough_inliers_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, of
 
 
 def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, scores, mask):
-    """One launch of M3 in `mode` over the stack's segments; False when
+    """One launch of M3 in `mode` over the stack's segments; none when
     every segment is empty (no block to launch)."""
     m = pts0.shape[0]
     for name, t, shape in (
@@ -192,7 +192,7 @@ def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, off
         raise ValueError(f"offsets must ascend from 0 to {m}, got {offsets.tolist()}")
     blocks = segment_blocks(offsets, inliers=mode == 1)
     if blocks[-1] == 0:
-        return False
+        return
     p = len(offsets) - 1
     tables = (None, None, None)  # one pair: its count and winner are arguments
     if p > 1:
@@ -204,7 +204,6 @@ def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, off
     winner = int(winners[0]) if winners is not None and p == 1 else 0
     cuda_lib.launch("sift3d_hough", mode, rots, scales, pts0, pts1, s0, s1, o0, o1, *tables, scores, mask, p, m,
                     winner, int(blocks[-1]), *thresholds, device=pts0.device)
-    return True
 
 
 def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
@@ -216,12 +215,8 @@ def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=N
     scores = torch.zeros(pts0.shape[0], dtype=torch.int32, device=pts0.device)
     if pts0.shape[0] == 0:
         return scores
-    if _launch(0, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, None, scores, None):
-        cuda_lib.count_launch(hough_scores)
+    _launch(0, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, None, scores, None)
     return scores
-
-
-hough_scores.launches = 0
 
 
 def hough_inliers(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
@@ -232,12 +227,8 @@ def hough_inliers(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets,
     mask = torch.zeros(pts0.shape[0], dtype=torch.bool, device=pts0.device)
     if pts0.shape[0] == 0:
         return mask
-    if _launch(1, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, None, mask):
-        cuda_lib.count_launch(hough_inliers)
+    _launch(1, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, None, mask)
     return mask
-
-
-hough_inliers.launches = 0
 
 
 def hough_similarity_stacked(pairs, cfg: SiftConfig = DEFAULT_CONFIG, device=None):

@@ -176,7 +176,6 @@ def ratio_rows_f32(q, db, xyz, scale, log_thr: float, shift: float):
     if q.shape[0]:
         cuda_lib.launch("sift3d_ratio_match", q, db, xyz, scale, idx, ratio, q.shape[0], db.shape[0], log_thr, shift,
                         device=q.device)
-        cuda_lib.count_launch(ratio_rows_f32)
     return idx, ratio
 
 
@@ -184,8 +183,7 @@ def ratio_rows_int8(q, db, xyz, scale, log_thr: float, shift: float):
     """M2's int8 route (see ratio_rows_plain), for rows whose 64 columns
     are integers in -128..127: raises ValueError for any others
     (knn_cuda.int8_route, checked here). The plain version for CPU tensors;
-    for CUDA tensors M1's pre-pass and the int8 kernel, two launches, each
-    counted."""
+    for CUDA tensors M1's pre-pass and the int8 kernel, two launches."""
     if db.shape[0] < 2:
         raise ValueError(f"the ratio test needs >= 2 database rows, got {db.shape[0]}")
     if not int8_route(q, db):
@@ -206,10 +204,8 @@ def _int8(q, db, xyz, scale, log_thr: float, shift: float):
     db8 = torch.empty((npad, 16), dtype=torch.int32, device=q.device)
     dn = torch.empty(npad, dtype=torch.float32, device=q.device)
     cuda_lib.launch("sift3d_knn_prep_i8", db, db8, dn, None, nd, npad, 64, device=q.device)
-    cuda_lib.count_launch(ratio_rows_int8)
     cuda_lib.launch("sift3d_ratio_match_i8", q, db8, dn, xyz, scale, idx, ratio, nq, nd, log_thr, shift,
                     device=q.device)
-    cuda_lib.count_launch(ratio_rows_int8)
     return idx, ratio
 
 
@@ -223,10 +219,6 @@ def ratio_rows(q, db, xyz, scale, log_thr: float, shift: float):
         return ratio_rows_plain(q, db, xyz, scale, log_thr, shift)
     route = _int8 if int8_route(q, db) else ratio_rows_f32  # each checks its arguments
     return route(q, db, xyz, scale, log_thr, shift)
-
-
-ratio_rows_f32.launches = 0
-ratio_rows_int8.launches = 0
 
 
 @dataclasses.dataclass

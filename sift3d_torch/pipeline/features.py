@@ -226,11 +226,7 @@ def gather_eig(gstack, dogs, lvl, zyx, sigmas: Sequence[float], cfg: SiftConfig,
             in_bounds, keep, float(cfg.eig_threshold), r, b, nl, zg, nd, zd, yd, xd, gz0, int(dz0),
             depth, device=dev,
         )
-        cuda_lib.count_launch(gather_eig)
     return xyz, scale, in_bounds, pn, eigs, ori, keep
-
-
-gather_eig.launches = 0
 
 
 # The canonical stage's 3-vector algebra rounds as the compiled JAX package

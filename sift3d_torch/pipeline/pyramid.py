@@ -43,6 +43,16 @@ def initial_blur_core(img: torch.Tensor, cfg: SiftConfig, initial_image_scale: f
     return _blur(img, initial_blur_sigma(cfg, initial_image_scale), cfg)
 
 
+# the f32 volumes of its grid that one volume of a batch holds at its
+# pyramid's peak, K1's launch in octave 0 of octave_core: the batch's slot
+# (1), the six blur levels (6, the initial blur's output among them) and
+# their torch.stack copy (6), the DoGs (5), the extrema mask's three int8
+# planes (3/4) and the next octave's base (1/8). K7's scratch (1) is freed
+# before it, and the feature stage's rows, which come after, take far less.
+# extract.volume_bytes plans sub-batches with it.
+OCTAVE0_VOLUMES = 1 + 6 + 6 + 5 + 3 / 4 + 1 / 8
+
+
 def octave_core(base: torch.Tensor, cfg: SiftConfig):
     """One octave of a [Z, Y, X] base: returns (gstack [6, Z, Y, X],
     dogs [5, Z, Y, X], mask [3, Z, Y, X] int8, next_base [Z/2, Y/2, X/2]);

@@ -25,6 +25,7 @@ import torch
 
 from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.kernels import cuda_lib, hist_cuda
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.kernels.patch import normalize_patches
 from sift3d_torch.pipeline import features
 from sift3d_torch.pipeline.extract import extract_features
@@ -93,13 +94,13 @@ def test_the_cpu_route_is_the_plain_stage_and_never_builds(monkeypatch):
 
     monkeypatch.setattr(cuda_lib, "build", no_build)
     monkeypatch.setattr(cuda_lib, "library", no_build)
-    before = hist_cuda.canonical_orientations.launches
+    before = launches("sift3d_canonical")
     for pn in (_noise(24, 5), _noise(1, 6)):
         got = features.canonical_stage(pn, CFG)
         want = features.canonical_stage_plain(pn, CFG)
         assert got["ori_valid"].shape == (pn.shape[0], K1, K2)
         assert _same(got, want)
-    assert hist_cuda.canonical_orientations.launches == before
+    assert launches("sift3d_canonical") == before
 
 
 def test_kvalid_drops_the_secondaries_of_dead_rows_only():
@@ -147,10 +148,10 @@ BAD_CALLS = ["k1 of 0", "k2 of 84", "pn of rank 3", "pn of 12^3", "pn in f64", "
 @pytest.mark.parametrize("case", BAD_CALLS)
 def test_the_wrapper_refuses_what_the_kernels_do_not_take(case):
     kwargs, message = _bad_call(case)
-    before = hist_cuda.canonical_orientations.launches
+    before = launches("sift3d_canonical")
     with pytest.raises(ValueError, match=message):
         hist_cuda.canonical_orientations(**kwargs)
-    assert hist_cuda.canonical_orientations.launches == before
+    assert launches("sift3d_canonical") == before
 
 
 # --- on the card ------------------------------------------------------------
@@ -190,10 +191,10 @@ def test_the_fused_stage_equals_the_plain_stage_on_the_card(card, case):
     pn, live = _case(case)
     if live is not None:
         assert pn.shape[0] > 0 and _live_primaries(pn).tolist() == [live] * pn.shape[0]
-    before = hist_cuda.canonical_orientations.launches
+    before = launches("sift3d_canonical")
     got = features.canonical_stage(pn.to(card), CFG)
     torch.cuda.synchronize()
-    assert hist_cuda.canonical_orientations.launches == before + (pn.shape[0] > 0)
+    assert launches("sift3d_canonical") == before + (pn.shape[0] > 0)
     assert got["ori"].device == card
     if pn.shape[0] == 0:  # no launch; the plain stage takes no empty octave (emit_candidates returns first)
         assert got["ori"].shape == (0, K1, K2, 3, 3) and got["ori_valid"].shape == (0, K1, K2)

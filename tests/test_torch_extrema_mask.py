@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from sift3d.kernels import extrema as jx_extrema
 from sift3d.kernels.extrema_pallas import extrema_mask_pallas
 from sift3d_torch.kernels import cuda_lib
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.kernels.extrema_cuda import extrema_mask, extrema_mask_plain
 
 torch.set_num_threads(1)
@@ -44,9 +45,9 @@ def test_extrema_mask_cpu_routes_to_plain(rng, monkeypatch):
 
     monkeypatch.setattr(cuda_lib, "library", no_build)
     d = torch.from_numpy(_smooth_dogs(rng, (2, 5, 7, 9, 11)))
-    before = extrema_mask.launches
+    before = launches("sift3d_extrema_mask")
     assert torch.equal(extrema_mask(d), extrema_mask_plain(d))
     assert torch.equal(extrema_mask(d[1]), extrema_mask_plain(d)[1])
-    assert extrema_mask.launches == before
+    assert launches("sift3d_extrema_mask") == before
     with pytest.raises(ValueError, match="no kernel for device"):
         extrema_mask(d.to("meta"))

@@ -21,9 +21,10 @@ from sift3d.kernels.hist_pallas import smooth_histogram_peaks as jx_peaks
 from sift3d.kernels.hist_pallas import splat_histogram_raw as jx_raw
 from sift3d.pipeline import features as jx_features
 from sift3d_torch.kernels import cuda_lib
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.kernels.hist_cuda import (
     hist_band, hist_topk_plain, peak_rows, smooth_histogram, smooth_histogram_peaks,
-    smooth_histogram_peaks_bins, splat_histogram_raw, splat_histogram_raw_bins,
+    smooth_histogram_peaks_bins, splat_histogram_raw,
 )
 
 torch.set_num_threads(1)
@@ -116,9 +117,10 @@ def test_cpu_tensors_take_the_plain_path(coords, monkeypatch):
 
     monkeypatch.setattr(cuda_lib, "library", no_build)
     xyz, w = coords
-    before = (splat_histogram_raw_bins.launches, smooth_histogram_peaks_bins.launches)
+    entries = ("sift3d_splat_histogram_raw", "sift3d_smooth_histogram_peaks")
+    before = [launches(e) for e in entries]
     splat_histogram_raw(*_tx(xyz, w))
     smooth_histogram_peaks(*_tx(xyz, w), BAND)
-    assert (splat_histogram_raw_bins.launches, smooth_histogram_peaks_bins.launches) == before
+    assert [launches(e) for e in entries] == before
     with pytest.raises(ValueError, match="no kernel for device"):
         splat_histogram_raw(*[t.to("meta") for t in _tx(xyz, w)])

@@ -27,6 +27,7 @@ import torch
 
 from sift3d_torch.core.config import DEFAULT_CONFIG
 from sift3d_torch.core.featureset import INFO_FLAG_REORIENT, FeatureSet
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.match import hough, pairwise
 
 torch.set_num_threads(1)
@@ -216,15 +217,15 @@ def test_both_modes_on_the_card(rng):
     args, offsets = _stack(pairs)
     args = tuple(a.to(dev).contiguous() for a in args)
     offsets = np.insert(offsets, 2, offsets[1])
-    before = hough.hough_scores.launches
+    before = launches("sift3d_hough")
     scores = hough.hough_scores(*args, THRESHOLDS, offsets)
     torch.cuda.synchronize()
-    assert hough.hough_scores.launches == before + 1
+    assert launches("sift3d_hough") == before + 1
     assert torch.equal(scores, hough.hough_scores_plain(*args, THRESHOLDS, offsets))
     s = scores.cpu().numpy()
     winners = [lo + int(np.argmax(s[lo:hi])) if hi > lo else lo for lo, hi in zip(offsets[:-1], offsets[1:])]
-    before = hough.hough_inliers.launches
+    before = launches("sift3d_hough")
     mask = hough.hough_inliers(*args, THRESHOLDS, offsets, winners)
     torch.cuda.synchronize()
-    assert hough.hough_inliers.launches == before + 1
+    assert launches("sift3d_hough") == before + 1
     assert torch.equal(mask, hough.hough_inliers_plain(*args, THRESHOLDS, offsets, winners))

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from sift3d_torch.kernels import knn_cuda
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.match.knn import knn_search
 
 torch.set_num_threads(1)
@@ -86,6 +87,8 @@ def _rows(kind, rng, n):
     raise ValueError(kind)
 
 
+# M1's int8 route: its pre-pass, its main kernel and the slices' merge
+INT8_ENTRIES = ("sift3d_knn_prep_i8", "sift3d_knn_topk_i8", "sift3d_knn_merge")
 ROUTES = {"int8 range": True, "GoH ranks": True, "-g 67 columns": True, "4-letter": True, "repeated": True,
           "float": False, "one float value": False, "128": False, "-129": False, "NaN": False, "inf": False}
 
@@ -208,20 +211,21 @@ def test_both_routes_and_the_split_on_the_card(rng):
         assert knn_cuda.int8_route(q, db) is ROUTES[kind]
         if ROUTES[kind]:
             # 1000 rows: 8 slices and the merge; 120 rows: one slice
-            before = knn_cuda.knn_topk_int8.launches
+            before = [launches(e) for e in INT8_ENTRIES]
             got = knn_cuda.knn_topk_int8(q, db, k)
             torch.cuda.synchronize()
             assert knn_cuda.int8_plan(q.shape[0], n, knn_cuda.int8_places(dev, q.shape[1], k))[0] == (
                 8 if n == 1000 else 1)
-            assert knn_cuda.knn_topk_int8.launches == before + (3 if n == 1000 else 2), kind
+            launched = [launches(e) - b for e, b in zip(INT8_ENTRIES, before)]
+            assert launched == [1, 1, 1 if n == 1000 else 0], kind
             assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (kind, k, n)
         else:
-            before = knn_cuda.knn_topk_int8.launches
+            before = [launches(e) for e in INT8_ENTRIES]
             with pytest.raises(ValueError, match="int8 route"):
                 knn_cuda.knn_topk_int8(q, db, k)
-            assert knn_cuda.knn_topk_int8.launches == before
-        before = knn_cuda.knn_topk_f32.launches
+            assert [launches(e) for e in INT8_ENTRIES] == before
+        before = launches("sift3d_knn_topk")
         got = knn_cuda.knn_topk_f32(q, db, k)
         torch.cuda.synchronize()
-        assert knn_cuda.knn_topk_f32.launches == before + 1
+        assert launches("sift3d_knn_topk") == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), kind

@@ -39,6 +39,7 @@ import torch
 from sift3d_torch.core.config import SiftConfig
 from sift3d_torch.dist import gather, solve
 from sift3d_torch.kernels import cuda_lib, extrema_cuda, gauss, gauss_cuda, hist_cuda, knn_cuda, patch, patch_cuda
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.match import hough, pairwise
 from sift3d_torch.match.knn import knn_search
 from sift3d_torch.match.solve import solve_similarity
@@ -166,10 +167,36 @@ def _match_inputs(device):
     )
 
 
-# launches a call of the wrappers that launch more than one kernel: M1's
-# int8 route runs its pre-pass and its main kernel (one slice at these
-# sizes), M2's int8 route M1's pre-pass and its own kernel
-LAUNCHES = {"knn_topk": 2, "knn_topk_geometry": 2, "ratio_rows": 2}
+# the C entries (cuda_lib.SIGNATURES) one call of each of _calls launches,
+# once each: M1's int8 route its pre-pass and its main kernel (one slice at
+# these sizes), M2's int8 route M1's pre-pass and its own kernel, M3's
+# scores and inlier masks the one entry's two modes
+KNN_I8, HOUGH = ("sift3d_knn_prep_i8", "sift3d_knn_topk_i8"), ("sift3d_hough",)
+ENTRIES = {
+    "knn_topk": KNN_I8, "knn_topk_geometry": KNN_I8, "knn_topk_f32": ("sift3d_knn_topk",),
+    "ratio_rows": ("sift3d_knn_prep_i8", "sift3d_ratio_match_i8"), "ratio_rows_f32": ("sift3d_ratio_match",),
+    "hough_scores": HOUGH, "hough_scores_stacked": HOUGH, "hough_inliers": HOUGH, "hough_inliers_one_pair": HOUGH,
+    "gather_eig": ("sift3d_identity_eig",), "rotated_goh": ("sift3d_rotated_goh",), "goh": ("sift3d_goh",),
+    "rotated_brief": ("sift3d_rotated_brief",), "rotated_rrief": ("sift3d_rotated_brief",),
+    "rotated_nrrief": ("sift3d_rotated_brief",), "brief": ("sift3d_brief",),
+    "dogs_extrema": ("sift3d_dogs_extrema",), "sample_rotated": ("sift3d_sample_rotated",),
+    "extrema_mask": ("sift3d_extrema_mask",), "extrema_mask_batch": ("sift3d_extrema_mask",),
+    "hist_topk": ("sift3d_hist_topk",), "splat_histogram_raw": ("sift3d_splat_histogram_raw",),
+    "smooth_histogram_peaks": ("sift3d_smooth_histogram_peaks",),
+    "blur3d": ("sift3d_blur3d",), "blur3d_batch": ("sift3d_blur3d",),
+}
+
+
+def _counts() -> dict:
+    """Every C entry's launches so far (cuda_lib's count), but the
+    occupancy query's, which knn_cuda.int8_places makes once a shape."""
+    return {e: launches(e) for e in cuda_lib.SIGNATURES if e != "sift3d_knn_i8_blocks_per_sm"}
+
+
+def _launched(before: dict) -> dict:
+    """{entry: launches since before} of the entries that launched."""
+    now = _counts()
+    return {e: now[e] - before[e] for e in now if now[e] != before[e]}
 
 
 def _calls(gs, lvl, centers, scales, oris, hist, band):
@@ -231,10 +258,12 @@ def test_cpu_tensors_take_the_plain_path_and_never_build(rng, monkeypatch):
 
     monkeypatch.setattr(cuda_lib, "build", no_build)
     monkeypatch.setattr(cuda_lib, "library", no_build)
-    for name, (wrapper, plain, args) in _calls(*_inputs(rng)).items():
-        before = wrapper.launches
+    calls = _calls(*_inputs(rng))
+    assert set(calls) == set(ENTRIES)
+    for name, (wrapper, plain, args) in calls.items():
+        before = _counts()
         assert _equal(wrapper(*args), plain(*args)), name
-        assert wrapper.launches == before, f"{name} counted a launch on the CPU"
+        assert _launched(before) == {}, f"{name} counted a launch on the CPU"
 
 
 def test_other_devices_raise(rng):
@@ -285,15 +314,23 @@ def test_library_loads_once_from_many_threads(monkeypatch):
         cuda_lib._load.cache_clear()
 
 
-def test_launch_counts_lose_no_update_under_threads():
-    def wrapper():
-        pass
+def test_launch_counts_lose_no_update_under_threads(monkeypatch):
+    """16 threads launch one entry 2000 times each through cuda_lib.launch
+    (a library whose entries return 0 on a stand-in stream): every launch is
+    counted, under that entry's name alone."""
+    class FakeLib:
+        def __getattr__(self, name):
+            return lambda *args: 0
 
-    wrapper.launches = 0
+    monkeypatch.setattr(cuda_lib, "library", FakeLib)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: type("Stream", (), {"cuda_stream": 0}))
+    dev = torch.device("cuda:0")
+    before = _counts()
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        threads = [threading.Thread(target=lambda: [cuda_lib.count_launch(wrapper) for _ in range(2000)])
+        threads = [threading.Thread(target=lambda: [cuda_lib.launch("sift3d_goh", 0, 0, 0, device=dev)
+                                                    for _ in range(2000)])
                    for _ in range(16)]
         for t in threads:
             t.start()
@@ -302,7 +339,7 @@ def test_launch_counts_lose_no_update_under_threads():
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
-    assert wrapper.launches == 16 * 2000
+    assert _launched(before) == {"sift3d_goh": 16 * 2000}
 
 
 def test_plain_versions_take_zero_rows():
@@ -323,15 +360,18 @@ def test_kernels_match_plain_on_the_card(rng):
     for name, (wrapper, plain, args) in _calls(
         *moved, [t.to(dev) for t in hist], band.to(dev)
     ).items():
-        before = wrapper.launches
+        before = _counts()
         got = wrapper(*args)
+        # read before the plain version runs: on the card some call kernels
+        # (the BRIEF pre-blur is K7)
+        launched = _launched(before)
         if name.startswith("blur3d"):
             want = plain(*[a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
             got = got.cpu()
         else:
             want = plain(*args)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + LAUNCHES.get(name, 1), name
+        assert launched == dict.fromkeys(ENTRIES[name], 1), name
         assert _equal(got, want), name
 
 
@@ -348,9 +388,9 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
     sig = tuple(cfg.level_sigmas())
     gs, _, centers, scales, oris, _, _ = _inputs(rng)
     batch = torch.stack([gs, gs.flip(1), gs * 0.5]).to(dev).contiguous()
-    before = extrema_cuda.dogs_extrema.launches
+    before = _counts()
     dogs, mask = extrema_cuda.dogs_extrema(batch)
-    assert extrema_cuda.dogs_extrema.launches == before + 1
+    assert _launched(before) == {"sift3d_dogs_extrema": 1}
     assert _equal((dogs, mask), extrema_cuda.dogs_extrema_plain(batch))
     for b in range(3):
         assert _equal((dogs[b], mask[b]), extrema_cuda.dogs_extrema(batch[b].contiguous()))
@@ -359,9 +399,9 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
     cdogs = torch.stack([cdogs, cdogs.flip(1), cdogs * 2.0]).to(dev).contiguous()
     vi = torch.arange(3).repeat_interleave(lvl.shape[0]).to(dev)
     lvl, zyx = lvl.repeat(3).to(dev), zyx.repeat(3, 1).to(dev)
-    before = features.gather_eig.launches
+    before = _counts()
     got = features.gather_eig(batch, cdogs, lvl, zyx, sig, cfg, vi=vi)
-    assert features.gather_eig.launches == before + 1
+    assert _launched(before) == {"sift3d_identity_eig": 1}
     assert _equal(got, features.gather_eig_plain(batch, cdogs, lvl, zyx, sig, cfg, vi=vi))
     for b in range(3):
         sel = vi == b
@@ -374,12 +414,13 @@ def test_batched_kernels_match_per_volume_calls_on_the_card(rng):
     rows = [t.to(dev) for t in (centers, scales, oris)]
     flat = batch.flatten(0, 1)
     glvl = (rvi * 6 + rlvl).to(torch.int32)
-    for wrapper, plain in ((patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain),
-                           (patch_cuda.rotated_brief, patch_cuda.rotated_brief_plain),
-                           (patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain)):
-        before = wrapper.launches
+    for wrapper, plain, entry in (
+            (patch_cuda.rotated_goh, patch_cuda.rotated_goh_plain, "sift3d_rotated_goh"),
+            (patch_cuda.rotated_brief, patch_cuda.rotated_brief_plain, "sift3d_rotated_brief"),
+            (patch_cuda.sample_rotated, patch_cuda.sample_rotated_plain, "sift3d_sample_rotated")):
+        before = _counts()
         got = wrapper(flat, glvl, *rows)
-        assert wrapper.launches == before + 1
+        assert _launched(before) == {entry: 1}
         assert _equal(got, plain(flat, glvl, *rows))
         for b in range(3):
             sel = rvi == b
@@ -396,9 +437,9 @@ def test_sharded_knn_and_solve_on_the_card(rng):
     mesh = ["cuda:0"] * 3
     q, db, k = _match_inputs(torch.device("cuda:0"))["knn"]
     want = knn_search(q, db, k)
-    before = knn_cuda.knn_topk_int8.launches
+    before = _counts()
     got = gather.sharded_knn(q, db, k, mesh)
-    assert knn_cuda.knn_topk_int8.launches == before + 3 * LAUNCHES["knn_topk"]
+    assert _launched(before) == dict.fromkeys(ENTRIES["knn_topk"], 3)
     assert _equal(got, want)
     p, q = (rng.uniform(-10, 10, (1000, 3)).astype(np.float32) for _ in range(2))
     w = rng.uniform(0.5, 1.5, 1000).astype(np.float32)
@@ -432,12 +473,12 @@ def test_ratio_match_routes_at_their_edges_on_the_card(d):
     rng = np.random.default_rng(d)
     q, db, xyz, scale = _tie_rows(rng, 300, d, torch.device("cuda:0"))
     thr = float(np.float32(np.log(1.5)))
-    for wrapper, rows, launches in ((pairwise.ratio_rows_int8, (q, db), 2),
-                                    (pairwise.ratio_rows_f32, (q * 0.37, db * 0.37), 1)):
-        before = wrapper.launches
+    for wrapper, rows, entries in ((pairwise.ratio_rows_int8, (q, db), ENTRIES["ratio_rows"]),
+                                   (pairwise.ratio_rows_f32, (q * 0.37, db * 0.37), ENTRIES["ratio_rows_f32"])):
+        before = _counts()
         got = wrapper(*rows, xyz, scale, thr, 0.5)
         torch.cuda.synchronize()
-        assert wrapper.launches == before + launches
+        assert _launched(before) == dict.fromkeys(entries, 1)
         assert _equal(got, pairwise.ratio_rows_plain(*rows, xyz, scale, thr, 0.5)), wrapper.__name__
 
 
@@ -469,9 +510,10 @@ def test_fused_brief_at_its_edges_on_the_card(rng, variant):
         for g, z0 in ((gs, 0), (gs[:, 8:34].contiguous(), 8)):
             small = scales.clamp(max=2.0) if z0 else scales
             args = (g, lvl, centers, small, oris, z0, 40, variant, method)
-            before = patch_cuda.rotated_brief.launches
-            assert _equal(patch_cuda.rotated_brief(*args), patch_cuda.rotated_brief_plain(*args)), (method, z0)
-            assert patch_cuda.rotated_brief.launches == before + 1
+            before = _counts()
+            got = patch_cuda.rotated_brief(*args)
+            assert _launched(before) == {"sift3d_rotated_brief": 1}
+            assert _equal(got, patch_cuda.rotated_brief_plain(*args)), (method, z0)
         assert _equal(patch_cuda.brief(patches, variant, method), patch_cuda.brief_plain(patches, variant, method))
 
 

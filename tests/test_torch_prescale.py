@@ -9,8 +9,8 @@ On the CPU (32^3 volumes doubled to 64^3):
   sub-batches equals the unsplit call and each volume's
   ``extract_features(..., prescale="double")``, bit for bit;
 - the pipeline's "double" equals the CLI's old sequence (double the
-  volume, extract at initial image scale 0.5, halve location and scale),
-  bit for bit.
+  volume, the pipeline's body at initial image scale 0.5, halve location
+  and scale), bit for bit.
 On the card (``cuda``): ``csrc/double_size.cu`` equals the plain
 ``double_size`` chain on odd, even and length-1 axes and on a batch.
 """
@@ -21,7 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from sift3d_torch.core.config import SiftConfig
+from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.kernels import resample_cuda
+from sift3d_torch.kernels.cuda_lib import launches
 from sift3d_torch.kernels.resample import double_size
 from sift3d_torch.pipeline import extract
 from sift3d_torch.pipeline.extract import extract_features, extract_features_many
@@ -101,9 +104,14 @@ def test_a_split_doubled_cohort_equals_the_unsplit_call_and_each_volume_alone(vo
 
 @pytest.mark.parametrize("prescale", ["double"])
 def test_prescale_equals_the_clis_old_sequence(prescale):
-    # a 32^3 volume, extracted at 64^3
+    # a 32^3 volume, extracted at 64^3: the pipeline's body on the doubled
+    # volume at initial image scale 0.5, then halved
     vol = np.ascontiguousarray(synthetic_volume(64, seed=7)[::2, ::2, ::2])
-    want = extract_features(double_size(torch.from_numpy(vol.copy())), device="cpu", initial_image_scale=0.5)
+    doubled = double_size(torch.from_numpy(vol.copy()))[None]
+    want = FeatureSet.concatenate([
+        extract.octave_features(rows, octave)
+        for octave, rows in extract._batch_octaves(doubled, SiftConfig(), TRACER, 0.5, "goh", None, False)
+    ])
     want.xyz *= 0.5
     want.scale *= 0.5
     got = extract_features(vol, device="cpu", prescale=prescale)
@@ -111,9 +119,7 @@ def test_prescale_equals_the_clis_old_sequence(prescale):
     assert _same(extract_features_many([vol], device="cpu", prescale=prescale)[0], want)
 
 
-def test_prescale_sets_the_initial_image_scale_itself(volumes):
-    with pytest.raises(ValueError, match="prescale"):
-        extract_features(volumes[0], device="cpu", prescale="double", initial_image_scale=0.5)
+def test_unknown_prescale_is_refused(volumes):
     with pytest.raises(ValueError, match="prescale"):
         extract_features_many(volumes, device="cpu", prescale="twice")
     # -2- halves in the CLI, not in the pipeline
@@ -144,9 +150,9 @@ def test_the_upsample_kernel_equals_the_plain_chain_on_the_card(shape):
     rng = np.random.default_rng(sum(shape))
     batch = torch.from_numpy((100 * rng.standard_normal(shape)).astype(np.float32))
     out = torch.full((shape[0],) + resample_cuda.doubled_shape(shape[1:]), float("nan"), device=dev)
-    before = resample_cuda.double_size_batch.launches
+    before = launches("sift3d_double_size")
     resample_cuda.double_size_batch(batch.to(dev), out)
     torch.cuda.synchronize()
-    assert resample_cuda.double_size_batch.launches == before + 1
+    assert launches("sift3d_double_size") == before + 1
     for b in range(shape[0]):
         assert torch.equal(out[b].cpu(), double_size(batch[b])), (shape, b)

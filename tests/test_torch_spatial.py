@@ -8,7 +8,7 @@ row count (numerics.tree_sum), so the rows are the single-device rows bit
 for bit: counts, locations, scales, flags, orientations, eigenvalues and
 descriptors. The cases cover Z padding, halos deeper than
 a shard (relayed over several), the single-device tail, an unpadded Z,
-the -2+ initial blur, a BRIEF descriptor and both fallbacks.
+-2+ (prescale "double"), a BRIEF descriptor and both fallbacks.
 """
 
 import numpy as np
@@ -49,8 +49,9 @@ CASES = {
     "all_octaves": dict(seed=1, shape=(64, 32, 32), shards=8, octaves=99),
     # 64 = 4 shards x 2^2: no padding
     "unpadded": dict(seed=3, shape=(64, 32, 32), shards=4, octaves=2),
-    # the -2+ path's initial blur (sigma_init / 0.5)
-    "doubled_scale": dict(seed=2, shape=(70, 44, 36), shards=4, octaves=1, initial_image_scale=0.5),
+    # -2+: the volume doubled to a 70x44x36 grid, its initial blur from
+    # sigma_init / 0.5, the rows in the input's voxels
+    "doubled_scale": dict(seed=2, shape=(35, 22, 18), shards=4, octaves=1, prescale="double"),
     "nrrief": dict(seed=3, shape=(70, 44, 36), shards=3, octaves=2, descriptor="nrrief"),
 }
 
@@ -60,7 +61,7 @@ def test_spatial_equals_single_device(case):
     c = dict(CASES[case])
     vol = _blob_volume(c.pop("seed"), c.pop("shape"))
     mesh = make_mesh(c.pop("shards"), ["cpu"])
-    kw = dict(initial_image_scale=c.get("initial_image_scale", 1.0), descriptor=c.get("descriptor", "goh"))
+    kw = dict(prescale=c.get("prescale"), descriptor=c.get("descriptor", "goh"))
     want = extract_features(vol, CFG, device="cpu", **kw)
     got = spatial.extract_features_spatial(vol, mesh, CFG, sharded_octaves=c["octaves"], **kw)
     _assert_same(got, want)

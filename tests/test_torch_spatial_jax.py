@@ -8,9 +8,9 @@ beside these; its docstring states that its spatial path equals its
 single-device extract_features (spatial.py:460-471), which is what the
 port's spatial path is held to here: equal counts and repeatability 1.0
 both ways. The CLI cells hold --spatial=4 (with --spatial-octaves=2, and
-alone, where the 2 GiB rule shards nothing) to the same .key rows,
-locations, scales and descriptors as the CLI without it, and --debug-pgm
-to the same files.
+alone, where the 2 GiB rule shards nothing, and with -2+ on a 32^3
+volume) to the same .key rows, locations, scales and descriptors as the
+CLI without it, and --debug-pgm to the same files.
 """
 
 import os
@@ -47,10 +47,16 @@ def test_spatial_matches_jax(cell):
     np.testing.assert_array_equal(got.info, want.info)
 
 
-@pytest.mark.parametrize("flags", [["--spatial=4", "--spatial-octaves=2"], ["--spatial=4"], ["--spatial=3", "--spatial-octaves=2", "--debug-pgm"]])
+@pytest.mark.parametrize("flags", [["--spatial=4", "--spatial-octaves=2"], ["--spatial=4"],
+                                   ["--spatial=3", "--spatial-octaves=2", "--debug-pgm"],
+                                   ["-2+", "--spatial=4", "--spatial-octaves=1"]])
 def test_cli_spatial_matches_cli(tmp_path, flags):
+    vol = synthetic_volume(64, seed=7)
+    if "-2+" in flags:
+        # a 32^3 volume (test_torch_prescale.py's), extracted at 64^3
+        vol = np.ascontiguousarray(vol[::2, ::2, ::2])
     vol_path = str(tmp_path / "v.nii")
-    nifti.write(vol_path, synthetic_volume(64, seed=7))
+    nifti.write(vol_path, vol)
     dirs = {}
     for who, extra in (("plain", [f for f in flags if not f.startswith("--spatial")]), ("spatial", flags)):
         dirs[who] = tmp_path / who
