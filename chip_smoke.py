@@ -162,10 +162,11 @@ route and the launches printed), M2 on 31 stacked query sets against a
 route (yardstick torch.cdist + the eager closed form; the route, the
 launches and the kernel's own device ms printed), M2 on both routes at the
 edge shapes D in {2, 3, 127, 128, 129, 969, 9000} on tie-heavy rows, M3's
-scores on stacks of 31 pairs of 1000 and of 3000 matches (beside 31
-single-pair launches) and at M = 1500 and 3000, and its inlier masks on the
-31 x 1000 stack's winners (beside the device time and launches of the eager
-chunked scorer and mask).
+scores (each hypothesis formed in the kernel from its match) on stacks of 31
+pairs of 1000 and of 3000 matches (beside 31 single-pair launches) and at
+M = 1500 and 3000, and its inlier masks with the winners' rotations and
+scales on both stacks' winners, bit for bit (beside the device time and
+launches of the eager chunked scorer and mask).
 Then the kernel table as one JSON line, the card line, and last the
 result line. Any failure raises and exits non-zero; without a CUDA card,
 or without the sift3d_torch package beside it, it exits non-zero before
@@ -1660,6 +1661,7 @@ def compare_batched(base, cfg) -> list:
 MATCH_ROWS = 48_000  # 32 images x 1500 features: MATCHBENCH_r05.json's largest cell (its sizes only)
 HOUGH_PAIRS = 31  # the pairs of one featmatch call on 32 images
 HOUGH_STAGE_OPS = (34, 60, 4)  # ops a pair: the distance test, the orientation test, the scale test
+HOUGH_HYPOTHESIS_OPS = 169  # ops a hypothesis formed: two triangle frames, R1^T R0, the perimeters' ratio
 
 
 def similarity_matches(m: int, seed: int):
@@ -1690,8 +1692,8 @@ def tiled_goh_rows(feats):
 
 def stacked_hough_args(sizes, dev):
     """M3's inputs for a stack of pairs, one of m matches for each m in
-    sizes (similarity_matches, seeds 1, 2, ...): the hypotheses computed on
-    the host over the stack, everything on dev; and the offsets."""
+    sizes (similarity_matches, seeds 1, 2, ...): the matches on dev (M3
+    forms their hypotheses itself); and the offsets."""
     import numpy as np
     import torch
 
@@ -1699,9 +1701,17 @@ def stacked_hough_args(sizes, dev):
 
     pairs = [similarity_matches(m, seed=i + 1) for i, m in enumerate(sizes)]
     cat = [np.concatenate([p[f] for p in pairs]) for f in range(6)]
-    rots, hs = hough.hypotheses(*(torch.from_numpy(a) for a in cat[2:]))
-    args = [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in (rots, hs, *cat)]
+    args = [torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous() for a in cat]
     return args, hough.segment_offsets(sizes)
+
+
+def same_bits(a, b) -> bool:
+    """a and b (tensors) equal bit for bit: f32 values as int32 views."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a.cpu(), b.cpu())
 
 
 def knn_int8_work(nq: int, n: int, c: int, k: int):
@@ -1723,7 +1733,7 @@ def compare_matching(feats, cfg, dev):
     refuse); M2 on 31 stacked query sets against
     one database; M3's scores on stacks of 31 pairs of 1000 and of 3000
     matches (beside 31 single-pair launches) and on single pairs of M = 1500
-    and 3000, and its inlier masks on the 31 x 1000 stack's winners.
+    and 3000, and its inlier masks and winners on both stacks' winners.
     Returns the table's rows."""
     import numpy as np
     import torch
@@ -1831,7 +1841,7 @@ def compare_matching(feats, cfg, dev):
 
     # M3's scores on stacks of 31 pairs (featmatch's one launch a call) and
     # on single pairs at the pairwise path's largest M (max_matches) and half
-    # of it; the inlier masks on the first stack's winners
+    # of it; the inlier masks and winners on each stack's winners
     th = tuple(float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien))
     big = cfg.max_matches
     for sizes, label in (([1000] * HOUGH_PAIRS, f"{HOUGH_PAIRS} pairs x 1000 matches, stacked"),
@@ -1844,8 +1854,10 @@ def compare_matching(feats, cfg, dev):
         reach = [int(hough.hough_scores_plain(*args, t, offsets).sum()) for t in
                  ((float("inf"), th[1], float("-inf")), (float("inf"), th[1], th[2]))]
         scores = hough.hough_scores(*args, th, offsets)
+        if not same_bits(scores, hough.hough_scores_plain(*args, th, offsets)):
+            raise AssertionError(f"M3's scores differ from the plain version's at {label}")
         ops = HOUGH_STAGE_OPS[0] * sum(s * s for s in sizes) + HOUGH_STAGE_OPS[1] * reach[0] \
-            + HOUGH_STAGE_OPS[2] * reach[1]
+            + HOUGH_STAGE_OPS[2] * reach[1] + HOUGH_HYPOTHESIS_OPS * m
         blocks = int(hough.segment_blocks(offsets)[-1])
         extra = ""
         if len(sizes) > 1:
@@ -1864,27 +1876,31 @@ def compare_matching(feats, cfg, dev):
             f"{reach[0]}, past the orientation test {reach[1]}); [events, device ms an event] of the kernel "
             f"over 10 profiled calls {kernel_device_ms(lambda: hough.hough_scores(*args, th, offsets), 'hough')}"
             f"{extra} (exact)",
-            m * (26 + 10) * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th, offsets),
+            m * 26 * 4 + m * 4, ops, chain=lambda: hough.hough_scores_plain(*args, th, offsets),
             plain_reps=2,
         )
-        if len(sizes) > 1 and sizes[0] == 1000:
+        if len(sizes) > 1:
             s = scores.cpu().numpy()
             winners = [lo + int(np.argmax(s[lo:hi])) for lo, hi in zip(offsets[:-1].tolist(), offsets[1:].tolist())]
-            mask = hough.hough_inliers(*args, th, offsets, winners)
+            mask, rs = hough.hough_inliers(*args, th, offsets, winners)
             if int(mask.sum()) != int(s[winners].sum()):
                 raise AssertionError("M3's inlier masks disagree with its scores")
-            mreach = [int(hough.hough_inliers_plain(*args, t, offsets, winners).sum()) for t in
+            if not all(map(same_bits, (mask, rs), hough.hough_inliers_plain(*args, th, offsets, winners))):
+                raise AssertionError(f"M3's inlier masks or winners differ from the plain version's at {label}")
+            mreach = [int(hough.hough_inliers_plain(*args, t, offsets, winners)[0].sum()) for t in
                       ((float("inf"), th[1], float("-inf")), (float("inf"), th[1], th[2]))]
             record(
                 "hough_inliers", "sift3d_torch/csrc/hough_scores.cu", "sift3d/match/hough.py:95",
                 lambda: hough.hough_inliers(*args, th, offsets, winners),
                 lambda: hough.hough_inliers_plain(*args, th, offsets, winners),
                 0.0, f"the winners' masks, {label}, {int(hough.segment_blocks(offsets, True)[-1])} blocks, "
-                f"{int(mask.sum())} inliers; [events, device ms an event] of the kernel over 10 profiled calls "
+                f"{int(mask.sum())} inliers, the winners' rotations and scales formed on the card; [events, "
+                f"device ms an event] of the kernel over 10 profiled calls "
                 f"{kernel_device_ms(lambda: hough.hough_inliers(*args, th, offsets, winners), 'hough')} "
-                f"(exact)",
+                f"(exact, the winners bit for bit)",
                 m * 26 * 4 + len(sizes) * 10 * 4 + m,
-                HOUGH_STAGE_OPS[0] * m + HOUGH_STAGE_OPS[1] * mreach[0] + HOUGH_STAGE_OPS[2] * mreach[1],
+                HOUGH_STAGE_OPS[0] * m + HOUGH_STAGE_OPS[1] * mreach[0] + HOUGH_STAGE_OPS[2] * mreach[1]
+                + HOUGH_HYPOTHESIS_OPS * len(sizes),
                 chain=lambda: hough.hough_inliers_plain(*args, th, offsets, winners),
             )
     return table_rows(results)

@@ -105,11 +105,12 @@ SIGNATURES = {
     # sift3d_knn_prep_i8, xyz, scale, idx, ratio, Q, D, log_thr, shift
     "sift3d_ratio_match": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F),
     "sift3d_ratio_match_i8": (_P,) * 7 + (_I, _I, _F, _F),
-    # mode (0 scores, 1 inliers), rots [M,9], hscale [M], p0 [M,3], p1 [M,3], s0 [M], s1 [M],
-    # o0 [M,9], o1 [M,9] f32, offsets [P+1] i32, block offsets [P+1] i32 (hough.segment_blocks),
-    # winners [P] i32 (the three null for one pair), scores [M] i32 (zeroed), mask [M] u8, P, M,
-    # winner (one pair), blocks, thres_scale, thres_trans, thres_orien
-    "sift3d_hough": (_I,) + (_P,) * 13 + (_I, _I, _I, _I, _F, _F, _F),
+    # mode (0 scores, 1 inliers), p0 [M,3], p1 [M,3], s0 [M], s1 [M], o0 [M,9], o1 [M,9] f32 (each
+    # match its hypothesis, formed in the kernel), offsets [P+1] i32, block offsets [P+1] i32
+    # (hough.segment_blocks), winners [P] i32 (the three null for one pair), scores [M] i32
+    # (zeroed), mask [M] u8, the winners' rotations and scales [P,10] f32, P, M, winner (one pair),
+    # blocks, thres_scale, thres_trans, thres_orien
+    "sift3d_hough": (_I,) + (_P,) * 12 + (_I, _I, _I, _I, _F, _F, _F),
 }
 
 

@@ -10,24 +10,28 @@ frames), and an inlier count over all matches under the HOUGH_THRES_*
 rules (:918-937). The best hypothesis has the most inliers, the first on
 ties (strict '>' update, :941).
 
-The frames and scales (:func:`hypotheses`) are plain torch over the M
-matches, on the host: they carry the fma contractions XLA's CPU code makes
-in the JAX package (each norm's sum of squares and each dot an fma chain,
-each cross-product term fma(a, b, -(c d)), ``numerics.fma_exact``), so the
-winning rotation and scale, and with them the transform files, are the JAX
-package's bit for bit. The scoring is the kernel M3
-(``csrc/hough_scores.cu``) over a stack of pairs, each hypothesis against
-the matches of its own pair (segment): :func:`hough_scores`, whose plain
-version runs :func:`hough_ok` over chunks of each segment's hypotheses, then
-the winners' inlier masks, :func:`hough_inliers`, whose plain version is
-:func:`hough_ok` on each winner's row; the featmatch CLI runs every pair of
-a call as one stack (:func:`hough_similarity_stacked`: two launches), and a
-single pair is a stack of one. There every dot product is an explicit
-((a0 b0 + a1 b1) + a2 b2), every norm the correctly rounded root of such a
-sum, every log computed in f64 and rounded to f32, in the kernel and here
-alike. The JAX package sums a probability per match that its caller sets
-to ones, so its score is this count; it pads M to a power of two for XLA,
-the port does not.
+The frames and scales (:func:`hypotheses`) carry the fma contractions
+XLA's CPU code makes in the JAX package (each norm's sum of squares and each
+dot an fma chain, each cross-product term fma(a, b, -(c d)),
+``numerics.fma_exact``), so the winning rotation and scale, and with them
+the transform files, are the JAX package's bit for bit. The kernel M3
+(``csrc/hough_scores.cu``) forms them itself, each hypothesis in the
+registers of the threads that score it (``__fmaf_rn`` for ``fma_exact``,
+``__fsqrt_rn`` for ``numerics.sqrt``), from the matches alone: no rotation
+or scale is computed on the host or uploaded. It scores a stack of pairs,
+each hypothesis against the matches of its own pair (segment):
+:func:`hough_scores`, whose plain version forms the hypotheses with
+:func:`hypotheses` and runs :func:`hough_ok` over chunks of each segment's
+hypotheses, then the winners' inlier masks and their rotations and scales,
+:func:`hough_inliers`, whose plain version is :func:`hough_ok` on each
+winner's row; the featmatch CLI runs every pair of a call as one stack
+(:func:`hough_similarity_stacked`: two launches), and a single pair is a
+stack of one. There every dot product is an explicit ((a0 b0 + a1 b1) +
+a2 b2), every norm the correctly rounded root of such a sum, every log
+computed in f64 and rounded to f32, in the kernel and here alike. The JAX
+package sums a probability per match that its caller sets to ones, so its
+score is this count; it pads M to a power of two for XLA, the port does
+not.
 """
 
 from __future__ import annotations
@@ -147,10 +151,11 @@ def _segments(offsets, m: int):
     return list(zip(offsets[:-1], offsets[1:]))
 
 
-def hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
-    """[M] int32 inlier counts of every hypothesis against the matches of
-    its own segment (offsets [P + 1]; None: one segment), in chunks of
-    hypotheses."""
+def hough_scores_plain(pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
+    """[M] int32 inlier counts of every match as a hypothesis (:func:`hypotheses`)
+    against the matches of its own segment (offsets [P + 1]; None: one
+    segment), in chunks of hypotheses."""
+    rots, scales = hypotheses(s0, s1, o0, o1)
     out = []
     for lo, hi in _segments(offsets, pts0.shape[0]):
         seg = slice(lo, hi)
@@ -164,25 +169,33 @@ def hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, off
     return torch.cat(out) if out else torch.zeros(0, dtype=torch.int32, device=pts0.device)
 
 
-def hough_inliers_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
-    """[M] bool: each segment's matches that are inliers of its winning
-    hypothesis (winners [P], rows of the stack): hough_ok on the winner's
-    row."""
-    out = [
-        hough_ok(rots[w][None], scales[w][None], pts0[w][None], pts1[w][None], pts0[lo:hi], pts1[lo:hi],
-                 s0[lo:hi], s1[lo:hi], o0[lo:hi], o1[lo:hi], thresholds)[0]
-        for (lo, hi), w in zip(_segments(offsets, pts0.shape[0]), [int(w) for w in winners])
-    ]
-    return torch.cat(out) if out else torch.zeros(0, dtype=torch.bool, device=pts0.device)
+def hough_inliers_plain(pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
+    """([M] bool, [P, 10] f32): each segment's matches that are inliers of
+    its winning hypothesis (winners [P], rows of the stack), hough_ok on the
+    winner's row; and each winner's rotation (row-major) and scale
+    (:func:`hypotheses` on the winners' rows), zeros for an empty segment."""
+    segs = _segments(offsets, pts0.shape[0])
+    mask = torch.zeros(pts0.shape[0], dtype=torch.bool, device=pts0.device)
+    rs = torch.zeros(len(segs), 10, dtype=torch.float32, device=pts0.device)
+    live = [(p, lo, hi, int(w)) for p, ((lo, hi), w) in enumerate(zip(segs, winners)) if hi > lo]
+    if not live:
+        return mask, rs
+    rows = torch.tensor([w for *_, w in live], device=pts0.device)
+    rots, scales = hypotheses(s0[rows], s1[rows], o0[rows], o1[rows])
+    for k, (_, lo, hi, w) in enumerate(live):
+        mask[lo:hi] = hough_ok(rots[k][None], scales[k][None], pts0[w][None], pts1[w][None], pts0[lo:hi],
+                               pts1[lo:hi], s0[lo:hi], s1[lo:hi], o0[lo:hi], o1[lo:hi], thresholds)[0]
+    rs[[p for p, *_ in live]] = torch.cat([rots.reshape(-1, 9), scales[:, None]], dim=1)
+    return mask, rs
 
 
-def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, scores, mask):
+def _launch(mode: int, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, scores, mask, winner_rs):
     """One launch of M3 in `mode` over the stack's segments; none when
     every segment is empty (no block to launch)."""
     m = pts0.shape[0]
     for name, t, shape in (
-        ("rots", rots, (m, 3, 3)), ("scales", scales, (m,)), ("pts0", pts0, (m, 3)), ("pts1", pts1, (m, 3)),
-        ("s0", s0, (m,)), ("s1", s1, (m,)), ("o0", o0, (m, 3, 3)), ("o1", o1, (m, 3, 3)),
+        ("pts0", pts0, (m, 3)), ("pts1", pts1, (m, 3)), ("s0", s0, (m,)), ("s1", s1, (m,)),
+        ("o0", o0, (m, 3, 3)), ("o1", o1, (m, 3, 3)),
     ):
         cuda_lib.require_cuda(t, name, torch.float32, len(shape))
         if tuple(t.shape) != shape or t.device != pts0.device:
@@ -202,46 +215,75 @@ def _launch(mode: int, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, off
         meta = torch.from_numpy(meta).to(pts0.device, non_blocking=True)
         tables = (meta, meta[p + 1 :], None if winners is None else meta[2 * p + 2 :])
     winner = int(winners[0]) if winners is not None and p == 1 else 0
-    cuda_lib.launch("sift3d_hough", mode, rots, scales, pts0, pts1, s0, s1, o0, o1, *tables, scores, mask, p, m,
+    cuda_lib.launch("sift3d_hough", mode, pts0, pts1, s0, s1, o0, o1, *tables, scores, mask, winner_rs, p, m,
                     winner, int(blocks[-1]), *thresholds, device=pts0.device)
 
 
-def hough_scores(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
+def hough_scores(pts0, pts1, s0, s1, o0, o1, thresholds, offsets=None):
     """M3's scores (see hough_scores_plain): the plain version for CPU
-    tensors, one launch of the kernel over every segment for CUDA
-    tensors."""
+    tensors, one launch of the kernel over every segment for CUDA tensors,
+    which forms the M hypotheses on the card and counts them
+    (``card_hypotheses``)."""
     if cuda_lib.route(pts0) == "plain":
-        return hough_scores_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets)
+        return hough_scores_plain(pts0, pts1, s0, s1, o0, o1, thresholds, offsets)
     scores = torch.zeros(pts0.shape[0], dtype=torch.int32, device=pts0.device)
     if pts0.shape[0] == 0:
         return scores
-    _launch(0, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, None, scores, None)
+    TRACER.count("card_hypotheses", pts0.shape[0])
+    _launch(0, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, None, scores, None, None)
     return scores
 
 
-def hough_inliers(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
-    """M3's inlier masks (see hough_inliers_plain): the plain version for
-    CPU tensors, one launch of the kernel's second mode for CUDA tensors."""
+def _mask_bytes(m: int) -> int:
+    """Bytes of the mask in M3's inlier output: m, rounded up to whole
+    floats, so the winners' rotations and scales after it are aligned."""
+    return -(-m // 4) * 4
+
+
+def _inliers_packed(pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
+    """M3's inlier output as one uint8 buffer: the [M] mask, then (at
+    _mask_bytes(M)) the [P, 10] f32 winners' rotations and scales, so one
+    copy brings both to the host (:func:`_unpack_inliers`)."""
+    m = pts0.shape[0]
+    p = 1 if offsets is None else len(offsets) - 1
     if cuda_lib.route(pts0) == "plain":
-        return hough_inliers_plain(rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners)
-    mask = torch.zeros(pts0.shape[0], dtype=torch.bool, device=pts0.device)
-    if pts0.shape[0] == 0:
-        return mask
-    _launch(1, rots, scales, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, None, mask)
-    return mask
+        mask, rs = hough_inliers_plain(pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners)
+        pad = torch.zeros(_mask_bytes(m) - m, dtype=torch.uint8, device=pts0.device)
+        return torch.cat([mask.view(torch.uint8), pad, rs.reshape(-1).view(torch.uint8)])
+    out = torch.zeros(_mask_bytes(m) + 40 * p, dtype=torch.uint8, device=pts0.device)
+    mask, rs = _unpack_inliers(out, m, p)
+    if m:
+        _launch(1, pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners, None, mask, rs)
+    return out
+
+
+def _unpack_inliers(packed, m: int, p: int):
+    """(mask [M] bool, winners' rotations and scales [P, 10] f32): views of
+    an :func:`_inliers_packed` buffer."""
+    return packed[:m].view(torch.bool), packed[_mask_bytes(m) :].view(torch.float32).view(p, 10)
+
+
+def hough_inliers(pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners):
+    """M3's inlier masks and the winners' rotations and scales (see
+    hough_inliers_plain): the plain version for CPU tensors, one launch of
+    the kernel's second mode for CUDA tensors, which forms each winner on
+    the card."""
+    p = 1 if offsets is None else len(offsets) - 1
+    return _unpack_inliers(_inliers_packed(pts0, pts1, s0, s1, o0, o1, thresholds, offsets, winners),
+                           pts0.shape[0], p)
 
 
 def hough_similarity_stacked(pairs, cfg: SiftConfig = DEFAULT_CONFIG, device=None):
     """hough_similarity of every pair of a list, each (pts0, pts1, s0, s1,
-    o0, o1) of M_p >= 1 matches as numpy arrays or tensors: the hypotheses
-    once on the host over the stacked matches (elementwise, so the same
-    bits as alone), ONE launch of M3's scores over every pair, each pair's
-    first maximum from one copy to the host, ONE launch of its inlier masks.
-    Returns a hough_similarity dict per pair. device: None means the card
-    (raises without one); "cpu" runs M3's plain versions. Spans
-    (``utils.timing.TRACER``): hough_hypotheses (the stacking and
-    :func:`hypotheses`), hough_vote (the uploads, M3 and its copies, the
-    maxima)."""
+    o0, o1) of M_p >= 1 matches as numpy arrays or tensors: the matches
+    stacked on the host, ONE launch of M3's scores over every pair (which
+    forms the hypotheses on the card), each pair's first maximum from one
+    copy to the host, ONE launch of its inlier masks, which also returns the
+    winners' rotations and scales in the mask's copy. Returns a
+    hough_similarity dict per pair. device: None means the card (raises
+    without one); "cpu" runs M3's plain versions. Spans
+    (``utils.timing.TRACER``): hough_hypotheses (the stacking), hough_vote
+    (the uploads, M3 and its copies, the maxima)."""
     if not pairs:
         return []
     dev = resolve_device(device, like=pairs[0][0])
@@ -250,25 +292,21 @@ def hough_similarity_stacked(pairs, cfg: SiftConfig = DEFAULT_CONFIG, device=Non
         host = [torch.cat([torch.as_tensor(p[f], dtype=torch.float32, device="cpu").reshape(-1, *shape)
                            for p in pairs])
                 for f, shape in enumerate(shapes)]
-        # the hypotheses on the host (a few hundred small ops over the M rows),
-        # the same for every device
-        rots, scales = hypotheses(*host[2:])
     with TRACER.stage("hough_vote"):
-        pts0, pts1, s0, s1, o0, o1 = (t.to(dev).contiguous() for t in host)
+        matches = [t.to(dev).contiguous() for t in host]
         thresholds = tuple(
             float(np.float32(t)) for t in (cfg.hough_thres_scale, cfg.hough_thres_trans, cfg.hough_thres_orien)
         )
         offsets = segment_offsets([len(p[0]) for p in pairs])
-        args = (rots.to(dev).contiguous(), scales.to(dev).contiguous(), pts0, pts1, s0, s1, o0, o1, thresholds,
-                offsets)
-        scores = hough_scores(*args).cpu().numpy()
+        scores = hough_scores(*matches, thresholds, offsets).cpu().numpy()
         bounds = list(zip(offsets[:-1].tolist(), offsets[1:].tolist()))
         winners = [lo + int(np.argmax(scores[lo:hi])) for lo, hi in bounds]  # the first maxima
-        inliers = hough_inliers(*args, winners).cpu().numpy()
+        packed = _inliers_packed(*matches, thresholds, offsets, winners).cpu()
+        inliers, rs = (t.numpy() for t in _unpack_inliers(packed, int(offsets[-1]), len(pairs)))
     return [
-        dict(hypothesis=w - lo, rot=rots[w].numpy().astype(np.float64), scale=float(scales[w]),
+        dict(hypothesis=w - lo, rot=rs[p, :9].reshape(3, 3).astype(np.float64), scale=float(rs[p, 9]),
              inliers=inliers[lo:hi], score=float(scores[w]))
-        for (lo, hi), w in zip(bounds, winners)
+        for p, ((lo, hi), w) in enumerate(zip(bounds, winners))
     ]
 
 

@@ -115,7 +115,7 @@ def test_scores_chunks_are_independent(rng):
     t = [torch.from_numpy(a) for a in (f2.xyz, f1.xyz, f2.scale, f1.scale, f2.ori, f1.ori)]
     rots, scales = hough.hypotheses(t[2], t[3], t[4], t[5])
     th = (1.0, 2.0, float(np.float32(0.7)))
-    whole = hough.hough_scores_plain(rots, scales, *t, th)
+    whole = hough.hough_scores_plain(*t, th)
     one = torch.cat([hough.hough_ok(rots[h : h + 1], scales[h : h + 1], t[0][h : h + 1], t[1][h : h + 1], *t, th)
                      .sum(dim=1, dtype=torch.int32) for h in range(70)])
     assert torch.equal(whole, one)

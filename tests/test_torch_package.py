@@ -151,8 +151,6 @@ def _match_inputs(device):
     p1 = (p0 + rng.normal(0, 2, p0.shape)).astype(np.float32)
     s0 = rng.uniform(2, 6, 40).astype(np.float32)
     s1 = (s0 * np.exp(rng.normal(0, 0.5, 40))).astype(np.float32)
-    m = [torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (s0, s1, o0, o1)]
-    rots, hs = hough.hypotheses(*m)
 
     def put(*arrays):
         return [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32).to(device) for a in arrays]
@@ -163,7 +161,7 @@ def _match_inputs(device):
         knn_f32=(*put(q * 0.37, db * 0.37), 5),
         ratio=(*put(q, db, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
         ratio_f32=(*put(q * 0.37, db * 0.37, xyz, scale), float(np.float32(np.log(1.5))), 0.5),
-        hough=(*put(rots, hs, p0, p1, s0, s1, o0, o1), (1.0, 2.0, float(np.float32(0.7)))),
+        hough=(*put(p0, p1, s0, s1, o0, o1), (1.0, 2.0, float(np.float32(0.7)))),
     )
 
 
