@@ -11,12 +11,23 @@ row split, the FeatureSets); inside an entry, same-shape volumes run as one
 batch (``extract_features_many``). The JAX package's ``streams`` and
 ``reoriented`` options are not ported (``extract_features_many`` has
 neither).
+
+Spans and counters (``utils.timing.TRACER``, on the calling thread, never
+synchronizing): ``place`` holds one call, from dealing the volumes to the
+last entry's result; ``place_tail``, inside it, runs from the first
+entry's result to the last, the time the node works on fewer than all its
+entries (not opened for one entry). While recording, ``placed_volumes``
+and ``placed_entries`` count each call's volumes and entries. The entries'
+own spans (``input``, ``pyramid``, ``emit``, ...) open in their host
+threads: a profiler sees them only when it records every thread, not just
+the one that started it.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import itertools
 from typing import List, Optional, Sequence
 
 import torch
@@ -26,6 +37,7 @@ from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.dist.mesh import make_mesh
 from sift3d_torch.pipeline import pyramid
 from sift3d_torch.pipeline.extract import extract_features_many
+from sift3d_torch.utils.timing import TRACER
 
 
 def initial_blur_batch(vols: torch.Tensor, cfg: SiftConfig = DEFAULT_CONFIG):
@@ -71,11 +83,16 @@ def extract_features_batch(
                 [vols[i] for i in ids], cfg, device=dev, descriptor=descriptor, prescale=prescale,
             )
 
-    groups = [list(range(e, len(vols), n)) for e in range(n)]
     out: List[Optional[FeatureSet]] = [None] * len(vols)
-    with concurrent.futures.ThreadPoolExecutor(max_workers=n) as ex:
-        jobs = [ex.submit(run, mesh[e], ids) for e, ids in enumerate(groups)]
-        for ids, job in zip(groups, jobs):
-            for i, f in zip(ids, job.result()):
-                out[i] = f
+    TRACER.count("placed_volumes", len(vols))
+    TRACER.count("placed_entries", n)
+    with TRACER.stage("place"), concurrent.futures.ThreadPoolExecutor(max_workers=n) as ex:
+        groups = [list(range(e, len(vols), n)) for e in range(n)]
+        jobs = {ex.submit(run, mesh[e], ids): ids for e, ids in enumerate(groups)}
+        done = concurrent.futures.as_completed(jobs)
+        first = next(done)
+        with TRACER.stage("place_tail") if n > 1 else contextlib.nullcontext():
+            for job in itertools.chain([first], done):
+                for i, f in zip(jobs[job], job.result()):
+                    out[i] = f
     return out

@@ -3,8 +3,8 @@ solve) on the CPU, every mesh entry "cpu" (the JAX tests' 8 simulated
 devices are one CPU too).
 
 Against the port's single-device results, bit for bit:
-- extract_features_batch (placement) against extract_features_many at 1, 3
-  and 8 entries, on tests/multihost_worker.py's 32^3 blob volumes, four of
+- extract_features_batch (placement) against extract_features_many at 1, 3,
+  4 and 8 entries, on tests/multihost_worker.py's 32^3 blob volumes, four of
   a second shape (32x24x40) and a zero volume;
 - sharded_knn against knn_search at 1, 3 and 8 entries: rows from a
   4-letter alphabet (tied distances; the (distance, index) order), 67-column
@@ -88,7 +88,7 @@ def _assert_same(got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b), k
 
 
-@pytest.mark.parametrize("entries", [1, 3, 8])
+@pytest.mark.parametrize("entries", [1, 3, 4, 8])
 def test_placement_equals_many(volumes, many, entries):
     assert len(many[-1]) == 0 and min(len(f) for f in many[:-1]) > 0
     got = batch.extract_features_batch(volumes, ["cpu"] * entries)
