@@ -12,15 +12,23 @@ batch (``extract_features_many``). The JAX package's ``streams`` and
 ``reoriented`` options are not ported (``extract_features_many`` has
 neither).
 
+Entries that run at once share the host's cores. Each one's host volumes
+stage through its device's ring on its own share of them
+(``pipeline.staging.shared_copy`` with :func:`copy_threads`' k), not on
+torch's OpenMP team of one thread a core: four such teams on a node's 32
+cores, one an entry, held every entry's copies back. One entry keeps the
+ring's usual routes.
+
 Spans and counters (``utils.timing.TRACER``, on the calling thread, never
 synchronizing): ``place`` holds one call, from dealing the volumes to the
 last entry's result; ``place_tail``, inside it, runs from the first
 entry's result to the last, the time the node works on fewer than all its
 entries (not opened for one entry). While recording, ``placed_volumes``
-and ``placed_entries`` count each call's volumes and entries. The entries'
-own spans (``input``, ``pyramid``, ``emit``, ...) open in their host
-threads: a profiler sees them only when it records every thread, not just
-the one that started it.
+and ``placed_entries`` count each call's volumes and entries, and the
+ring's ``shared_copy_volumes`` the volumes staged on the entries' shares.
+The entries' own spans (``input``, ``pyramid``, ``emit``, ...) open in
+their host threads: a profiler sees them only when it records every
+thread, not just the one that started it.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import itertools
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -35,7 +44,7 @@ import torch
 from sift3d_torch.core.config import DEFAULT_CONFIG, SiftConfig
 from sift3d_torch.core.featureset import FeatureSet
 from sift3d_torch.dist.mesh import make_mesh
-from sift3d_torch.pipeline import pyramid
+from sift3d_torch.pipeline import pyramid, staging
 from sift3d_torch.pipeline.extract import extract_features_many
 from sift3d_torch.utils.timing import TRACER
 
@@ -58,6 +67,21 @@ def on_device(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
+# cores of an entry's share a copy thread: on a node of four H100s and 32
+# cores, of k = 1, 2, 4 and the whole share, k = 1 staged fastest at four
+# entries (8 cores each) and k = 2 at two (16 each); a thread more a piece
+# only adds waits for the interpreter lock (PERF.md §6)
+CORES_PER_COPY_THREAD = 8
+
+
+def copy_threads(entries: int) -> int:
+    """The threads each of `entries` entries that run at once copies its
+    host volumes on (``staging.shared_copy``): one for every
+    CORES_PER_COPY_THREAD cores of its even share of the cores this process
+    may use, at least one."""
+    return max(1, len(os.sched_getaffinity(0)) // (CORES_PER_COPY_THREAD * entries))
+
+
 def extract_features_batch(
     vols: Sequence, mesh: Optional[Sequence] = None, cfg: SiftConfig = DEFAULT_CONFIG, *,
     descriptor: str = "goh", prescale: Optional[str] = None,
@@ -76,9 +100,11 @@ def extract_features_batch(
     if not len(vols):
         return []
     n = min(len(mesh), len(vols))
+    threads = copy_threads(n) if n > 1 else None
 
     def run(dev: torch.device, ids: List[int]) -> List[FeatureSet]:
-        with on_device(dev):
+        share = staging.shared_copy(threads) if threads else contextlib.nullcontext()
+        with on_device(dev), share:
             return extract_features_many(
                 [vols[i] for i in ids], cfg, device=dev, descriptor=descriptor, prescale=prescale,
             )

@@ -19,13 +19,26 @@ that read the destination are ordered after the copies by the stream
 alone. The caller's array is never pinned, registered or kept.
 
 The host copy sets the pace (an H100's 8-core host: numpy's copy 4.6–5.5
-GB/s, torch's intra-op copy 13–17, the pinned transfer 39–44). The
-volumes of a batch copy on torch's intra-op threads wherever torch can
-view the array: a batch's rate is what its caller waits for. A single
-volume copies on the calling thread alone: on that host, in a closed loop
-over T1 volumes, the copy spread over every core shortened the median
-latency by ~2 ms but lengthened the 95th percentile by ~8 ms against the
-one-thread copy.
+GB/s, torch's intra-op copy 13–17, the pinned transfer 39–44), and it has
+three routes:
+
+- the volumes of a batch copy on torch's intra-op threads (an OpenMP team
+  of one thread a core) wherever torch can view the array: a batch's rate
+  is what its caller waits for;
+- a single volume copies on the calling thread alone (numpy's copy): on
+  the 8-core host, in a closed loop over T1 volumes, the copy spread over
+  every core shortened the median latency by ~2 ms but lengthened the
+  95th percentile by ~8 ms against the one-thread copy;
+- inside :func:`shared_copy`, an array copies on k threads of numpy's
+  copy and no OpenMP team: each chunk splits into up to k contiguous
+  pieces, the calling thread copies the first and k - 1 workers of the
+  ring the rest. The placement (``dist/batch.py``) stages its entries'
+  volumes so when it runs several at once: k is one thread for every 8
+  cores of an entry's share of the host's (``copy_threads``). On a node
+  of four H100s and 32 cores, four entries ran the node at 129.4
+  volumes/s on four OpenMP teams of 32 threads and at 233.9, 220.5,
+  171.5 and 140.2 on k = 1, 2, 4 and 8; two entries at 306.2 on k = 2,
+  against 245.3, 254.6 and 121.7 on k = 1, 4 and 16.
 
 A ring belongs to one device (:func:`ring`: made on first use, kept for
 the process) and a lock serializes the volumes staged through it, so host
@@ -34,8 +47,9 @@ a slot. A ring on the CPU (unpinned slots, plain copies, no events) runs
 the same chunk walk; the tests hold it against ``np.array``.
 
 While ``TRACER`` records, the ring counts ``staged_volumes``,
-``staged_bytes`` (f32 bytes written to the destination) and
-``slot_waits`` (chunks whose slot was still in flight when the host
+``staged_bytes`` (f32 bytes written to the destination),
+``shared_copy_volumes`` (volumes copied on :func:`shared_copy`'s route)
+and ``slot_waits`` (chunks whose slot was still in flight when the host
 reached it: beside the chunk count, which of the host copy and the
 transfer sets the pace). It opens no span: the caller's ``input`` span
 holds the staging.
@@ -43,9 +57,11 @@ holds the staging.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import math
 import threading
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -57,6 +73,24 @@ from sift3d_torch.utils.timing import TRACER
 # nothing
 CHUNK_BYTES = 16 << 20  # one slot
 DEPTH = 2  # slots a ring
+
+_SHARE = threading.local()  # .threads: the calling thread's shared_copy k
+
+
+@contextlib.contextmanager
+def shared_copy(k: int):
+    """Within the block, the arrays this thread stages copy on k threads of
+    numpy's copy (this one and k - 1 workers of the ring) and on no OpenMP
+    team, whatever ``stage``'s parallel says; CPU tensors copy as before.
+    The bits are the same on every route."""
+    if k < 1:
+        raise ValueError(f"shared_copy needs k >= 1 threads, got {k}")
+    outer = getattr(_SHARE, "threads", None)
+    _SHARE.threads = int(k)
+    try:
+        yield
+    finally:
+        _SHARE.threads = outer
 
 
 def _copy_range(src, dst, lo: int, hi: int, copy) -> None:
@@ -141,16 +175,48 @@ class StagingRing:
         self.events = [torch.cuda.Event() for _ in range(DEPTH)] if cuda else None
         self._next = 0
         self._lock = threading.Lock()
+        self._copiers: Optional[concurrent.futures.ThreadPoolExecutor] = None  # shared_copy's workers
+        self._copier_count = 0
+
+    def _workers(self, count: int) -> concurrent.futures.ThreadPoolExecutor:
+        """A pool of at least count persistent copy workers (under the
+        ring's lock: no copy of the previous pool is in flight)."""
+        if self._copier_count < count:
+            if self._copiers is not None:
+                self._copiers.shutdown()
+            self._copiers = concurrent.futures.ThreadPoolExecutor(count, thread_name_prefix=f"staging-{self.device}")
+            self._copier_count = count
+        return self._copiers
+
+    def _fill_shared(self, src: np.ndarray, slot: torch.Tensor, lo: int, hi: int, k: int) -> None:
+        """``_fill``'s numpy copy of elements lo..hi of src into slot, split
+        into up to k contiguous pieces: the first on this thread, the others
+        on the ring's workers; returns when every piece is written."""
+        out = slot.numpy()
+        parts = min(k, hi - lo)
+        cuts = [lo + (hi - lo) * i // parts for i in range(parts + 1)]
+        pool = self._workers(parts - 1) if parts > 1 else None
+        jobs = [pool.submit(_copy_range, src, out[a - lo : b - lo], a, b, _numpy_copy)
+                for a, b in zip(cuts[1:-1], cuts[2:])]
+        try:
+            _copy_range(src, out[: cuts[1] - lo], lo, cuts[1], _numpy_copy)
+        finally:
+            concurrent.futures.wait(jobs)  # no worker writes the slot past this point
+        for job in jobs:
+            job.result()
 
     def stage(self, img, dst: torch.Tensor, parallel: bool = True) -> None:
         """Write img, cast to f32, into dst (a contiguous f32 tensor of
         img's shape on the ring's device): the bits of
         ``np.array(img, np.float32)`` for an array, of ``img.float()`` for a
         CPU tensor. parallel: an array's host copy may run on torch's
-        intra-op threads (``_source``). On a card the copies are
+        intra-op threads (``_source``); inside :func:`shared_copy` an array
+        copies on its k threads instead. On a card the copies are
         asynchronous: dst is complete for work ordered after them on the
         device's current stream."""
-        src = _source(img, parallel)
+        threads = getattr(_SHARE, "threads", None)
+        src = _source(img, parallel and threads is None)
+        shared = threads is not None and isinstance(src, np.ndarray)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"a volume of shape {tuple(src.shape)} staged into {tuple(dst.shape)}")
         flat = dst.view(-1)
@@ -165,12 +231,16 @@ class StagingRing:
                 if self.events is not None and not self.events[k].query():
                     waits += 1
                     self.events[k].synchronize()
-                _fill(src, slot, lo, hi)
+                if shared:
+                    self._fill_shared(src, slot, lo, hi, threads)
+                else:
+                    _fill(src, slot, lo, hi)
                 flat[lo:hi].copy_(slot, non_blocking=self.events is not None)
                 if self.events is not None:
                     self.events[k].record(torch.cuda.current_stream(self.device))
         TRACER.count("staged_volumes")
         TRACER.count("staged_bytes", 4 * total)
+        TRACER.count("shared_copy_volumes", int(shared))
         TRACER.count("slot_waits", waits)
 
 

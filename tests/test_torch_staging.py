@@ -5,9 +5,11 @@ staging ring (``sift3d_torch.pipeline.staging``).
   chunk walk gives the bits of ``np.array(img, np.float32)`` for f32, f64,
   int16, uint8 and big-endian int16 arrays, read-only, F-ordered, strided
   and reversed ones (torch copies a batch's arrays where it can view them,
-  numpy a single volume's and the rest), volumes smaller than a chunk, an exact multiple of it and
-  neither, more volumes than slots, CPU tensors, and host threads staging
-  through one ring at once.
+  numpy a single volume's and the rest, and ``shared_copy(k)``'s route
+  numpy on k threads at k = 1 and 3), volumes smaller than a chunk, an
+  exact multiple of it and neither, chunks shorter than k and no multiple
+  of it, more volumes than slots, CPU tensors, and host threads staging
+  through one ring at once, on the ring's own routes and on the shared one.
 - ``extract_features_many`` on mixed shapes with numpy and CPU-tensor
   inputs keeps its order and bits, on its plain path and with its inputs
   sent through a CPU ring; a volume that is not [Z, Y, X] raises before
@@ -19,9 +21,12 @@ staging ring (``sift3d_torch.pipeline.staging``).
   and layout above; ``extract_features_many`` on 32 T1-sized volumes gives
   the FeatureSets of the same volumes uploaded as before; a profiler trace
   of a staged call holds no pageable HtoD copy and no synchronize inside
-  ``input``; two threads staging to two cards (or one) give the bits;
-  ``featextract --time`` on a NIfTI volume (the reader's read-only f32
-  array) prints the ring's counters and writes the CPU's ``.key`` bytes.
+  ``input``; two threads staging to two cards (or one) give the bits; four
+  threads on the shared route onto cuda:0-3 and onto cuda:0 alone give the
+  bits, and placement there the FeatureSets of ``extract_features_many``
+  per group; ``featextract --time`` on a NIfTI volume (the reader's
+  read-only f32 array) prints the ring's counters (``shared_copy_volumes``
+  0) and writes the CPU's ``.key`` bytes.
 """
 
 import contextlib
@@ -75,10 +80,13 @@ def _cpu_ring(monkeypatch, chunk, depth):
     return StagingRing("cpu")
 
 
-def _staged_cpu(ring, imgs):
+def _staged_cpu(ring, imgs, threads=None):
+    """imgs staged through ring into one batch; threads: inside
+    ``staging.shared_copy(threads)``."""
     batch = torch.full((len(imgs),) + tuple(np.shape(imgs[0])), np.nan)
-    for b, img in enumerate(imgs):
-        ring.stage(img, batch[b])
+    with staging.shared_copy(threads) if threads else contextlib.nullcontext():
+        for b, img in enumerate(imgs):
+            ring.stage(img, batch[b])
     return batch
 
 
@@ -92,15 +100,37 @@ def _bits_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     return got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("threads", [None, 1, 3], ids=["own_routes", "shared_1", "shared_3"])
 @pytest.mark.parametrize("size", list(SIZES), ids=list(SIZES))
 @pytest.mark.parametrize("layout", ["contiguous", "read_only", "fortran", "strided", "reversed"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.int16, np.uint8, ">i2"],
                          ids=["f32", "f64", "int16", "uint8", "int16_big_endian"])
-def test_ring_walk_gives_the_bits_of_np_array(monkeypatch, dtype, layout, size):
+def test_ring_walk_gives_the_bits_of_np_array(monkeypatch, dtype, layout, size, threads):
+    """threads: the ring's own routes, or shared_copy's on 1 or 3 threads
+    (the ragged size's last chunk, 25 elements, no multiple of 3)."""
     vol = _array(SIZES[size], dtype, layout, np.random.default_rng(3))
     assert vol.flags.c_contiguous == (layout in ("contiguous", "read_only"))
-    got = _staged_cpu(_cpu_ring(monkeypatch, CHUNK, 3), [vol])[0]
+    got = _staged_cpu(_cpu_ring(monkeypatch, CHUNK, 3), [vol], threads)[0]
     assert _bits_equal(got, _want(vol))
+
+
+@pytest.mark.parametrize("shape, chunk, pieces", [((1, 1, 2), CHUNK, 2), ((5, 7, 11), 8, 3)],
+                         ids=["chunk_shorter_than_k", "chunks_no_multiple_of_k"])
+def test_shared_copy_splits_each_chunk_over_its_threads(monkeypatch, shape, chunk, pieces):
+    """k = 3: a chunk of 2 elements copies as 2 pieces of one element, on
+    this thread and one worker; chunks of 8 (385 elements: 48 of them and
+    one of 1) as 3, 3 and 2 on this thread and two workers, the last as 1.
+    Every piece is numpy's copy, and the bits are np.array's."""
+    ring = _cpu_ring(monkeypatch, chunk, 2)
+    seen = []
+    numpy_copy = staging._numpy_copy
+    monkeypatch.setattr(staging, "_numpy_copy", lambda d, s: (seen.append((threading.get_ident(), d.size)), numpy_copy(d, s)))
+    monkeypatch.setattr(staging, "_tensor_copy", lambda d, s: pytest.fail("torch's copy on the shared route"))
+    vol = _array(shape, np.float64, "strided", np.random.default_rng(11))
+    got = _staged_cpu(ring, [vol], threads=3)[0]
+    assert _bits_equal(got, _want(vol))
+    assert len({t for t, _ in seen}) == pieces and threading.get_ident() in {t for t, _ in seen}
+    assert sum(n for _, n in seen) == vol.size
 
 
 def test_torch_copies_what_it_can_view_and_numpy_the_rest(monkeypatch):
@@ -160,16 +190,19 @@ def test_a_shape_mismatch_raises(monkeypatch):
         ring.stage(np.zeros((2, 3, 4)), torch.empty(2, 4, 3))
 
 
-def test_threads_staging_through_one_ring_get_their_own_bits(monkeypatch):
+@pytest.mark.parametrize("share", [None, 3], ids=["own_routes", "shared_3"])
+def test_threads_staging_through_one_ring_get_their_own_bits(monkeypatch, share):
     """Eight threads, more than this test's cores, stage through one ring of
-    two slots at a short switch interval: no chunk lands in another's slot."""
+    two slots at a short switch interval: no chunk lands in another's slot.
+    shared_3: each inside shared_copy(3), so the ring's two workers copy
+    pieces of every thread's chunks."""
     ring = _cpu_ring(monkeypatch, CHUNK, 2)
     rng = np.random.default_rng(9)
     work = [[_array(SIZES["ragged"], np.float64, "strided", rng) for _ in range(6)] for _ in range(8)]
     results = [None] * len(work)
 
     def run(t):
-        results[t] = _staged_cpu(ring, work[t])
+        results[t] = _staged_cpu(ring, work[t], share)
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -272,7 +305,7 @@ def test_the_process_tracer_counts_nothing_unless_recording(monkeypatch):
     with TRACER.record():
         _cpu_ring(monkeypatch, CHUNK, 2).stage(np.ones((3, 5, 9)), torch.empty(3, 5, 9))
         counts = dict(TRACER.counts)
-    assert counts == {"staged_volumes": 1, "staged_bytes": 4 * 135, "slot_waits": 0}
+    assert counts == {"staged_volumes": 1, "staged_bytes": 4 * 135, "shared_copy_volumes": 0, "slot_waits": 0}
 
 
 # --- on the card -----------------------------------------------------------
@@ -400,6 +433,53 @@ def test_two_threads_staging_to_two_cards_get_their_bits(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["every_card", "one_card"])
+def test_four_placed_threads_share_the_copy_and_keep_the_bits(card, cards):
+    """Four threads stage on shared_copy's route onto cuda:0-3 (each card
+    index modulo the cards present) or all onto cuda:0, at a short switch
+    interval: each staged batch equals ``_volume``'s upload bit for bit.
+    Then extract_features_batch over the same mesh: every volume on the
+    shared route, each group's FeatureSets those of extract_features_many."""
+    from sift3d_torch.dist import batch
+
+    mesh = [torch.device("cuda", i % torch.cuda.device_count() if cards == "every_card" else 0) for i in range(4)]
+    rng = np.random.default_rng(6)
+    work = [[_array(MNI_T1_DIMS, dt, "strided", rng) for dt in (np.float32, np.int16)] for _ in mesh]
+    results = [None] * len(mesh)
+
+    def run(t):
+        with batch.on_device(mesh[t]), staging.shared_copy(batch.copy_threads(len(mesh))):
+            results[t] = extract._batch(work[t], MNI_T1_DIMS, mesh[t])
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(t,)) for t in range(len(mesh))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    for t, imgs in enumerate(work):
+        for b, img in enumerate(imgs):
+            assert _bits_equal(results[t][b], extract._volume(img, mesh[t])), (t, b)
+    vols = _device_volumes(8, MNI_T1_DIMS, 21, card)
+    with TRACER.record():
+        got = batch.extract_features_batch(vols, mesh)
+        counts = dict(TRACER.counts)
+    assert counts["shared_copy_volumes"] == counts["staged_volumes"] == len(vols)
+    for e, dev in enumerate(mesh):
+        with batch.on_device(dev):
+            want = extract_features_many(vols[e :: len(mesh)], device=dev)
+        for g, w in zip(got[e :: len(mesh)], want):
+            for k in FIELDS:
+                a, b = getattr(g, k), getattr(w, k)
+                assert a.dtype == b.dtype and np.array_equal(a, b), (e, k)
+
+
+@pytest.mark.cuda
 def test_featextract_time_prints_the_staging_counts(card, tmp_path, capsys):
     from sift3d_torch.cli import featextract
     from sift3d_torch.io import nifti
@@ -419,4 +499,5 @@ def test_featextract_time_prints_the_staging_counts(card, tmp_path, capsys):
             rows = {line.split()[0]: line.split() for line in printed.splitlines() if line.split()}
             assert rows["staged_volumes"][1] == "1" and rows["staged_bytes"][1] == str(4 * vol.size)
             assert rows["slot_waits"][1] == "0" and rows["input"][1] == "1"
+            assert rows["shared_copy_volumes"][1] == "0"
     assert keys["card"] == keys["cpu"] and keys["cpu"].count(b"\n") > 10
