@@ -9,7 +9,7 @@ Phases, each printing one line:
      the native .key I/O library (g++, io/native.py), the
      registers, shared memory and spills of K7's, K3/K8/K9's, the fused
      canonical stage's, K1/K6's, the
-     fused K2's and K4's (GoH and BRIEF), K10's and M1-M3's kernels from the
+     fused K2's and K4's (GoH and BRIEF), K10's, K11's and M1-M3's kernels from the
      build's nvcc.log, and a warning naming any kernel that spills; the int8
      tensor-core instructions (IMMA) in M1's and M2's int8 kernels from
      cuobjdump -sass, which must hold some;
@@ -20,7 +20,13 @@ Phases, each printing one line:
      (not at the -2+ shapes); K10 (the -2+ upsample, double_size_batch) on
      a [16, 182, 218, 182] batch (a -2+ sub-batch of T1 volumes) against
      the plain double_size chain volume by volume, exactly, its bound 36
-     bytes a voxel of the input; K1 on the octave-0 Gaussian stack of the T1
+     bytes a voxel of the input; K11 (the -w resample,
+     isotropic_resample_batch) on a [32, 128, 256, 256] batch at 1 x 1 x
+     1.25 mm (a -w sub-batch of OASIS-1 scans, grid 160x256x256) and on
+     edge shapes (length-1, odd and even axes, factors 1.25 to 3.0 on each
+     axis, NaN, infinities and signed zeros) against the plain
+     isotropic_resample chain volume by volume, bit for bit, its bound 8
+     bytes a voxel (4 read, 4 written); K1 on the octave-0 Gaussian stack of the T1
      grid, of the -2+ grid ([6, 364, 436, 364], 1.39 GB) and of the -2-
      grid, K6 on the T1 octave-0 DoGs and on one -2+ shard's one-plane-halo
      DoG slab, and the fused K2, K3, the fused canonical stage (both
@@ -101,7 +107,8 @@ Phases, each printing one line:
      qform and sform (grid 182x218x182), -2-, -b, -br and -bn on it: wall
      milliseconds of two calls, .key rows, and every kernel's launches (the
      fused K4 on the GoH flags, the fused BRIEF kernels on -b, -br and
-     -bn, K10 on -2+ alone, K4's patch mode on none); then the descriptors stage of
+     -bn, K10 on -2+ alone, K11 once a call on -w and -ws alone, K4's patch
+     mode on none); then the descriptors stage of
      extract_features with GoH and each BRIEF variant under torch.profiler:
      its launch calls and device ms;
   8. the CLI on the card against the CLI on the CPU for every flag, on the
@@ -189,6 +196,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FULL_DIMS = (182, 218, 182)
+# an OASIS-1 raw MP-RAGE scan: host [Z, Y, X] and voxel size (dx, dy, dz) mm
+OASIS_DIMS, OASIS_MM = (128, 256, 256), (1.0, 1.0, 1.25)
 MIN_ROWS = 4096
 REPS = 10
 CANONICAL_LAUNCHES = 24  # launch calls a canonical span, at most: the fused pair and reoriented_slots
@@ -964,7 +973,7 @@ def compare_kernels(vol, cfg):
 
     from sift3d_torch.core.config import initial_blur_sigma
     from sift3d_torch.kernels import extrema_cuda, gauss, gauss_cuda, hist_cuda, patch_cuda, resample_cuda
-    from sift3d_torch.kernels.resample import double_size, subsample_2x
+    from sift3d_torch.kernels.resample import double_size, isotropic_resample, isotropic_shape, subsample_2x
     from sift3d_torch.pipeline import features, pyramid
 
     results = []
@@ -990,6 +999,48 @@ def compare_kernels(vol, cfg):
         raise AssertionError("K10 differs from the plain double_size chain")
     del batch, out
     torch.cuda.empty_cache()
+
+    # K11 on a -w sub-batch of OASIS-1 scans (the planner's 32 on one card),
+    # against the plain chain volume by volume, bit for bit; its bound: each
+    # input voxel read once and each output voxel written once (4 B each)
+    def chain(b, mm):
+        return torch.stack([isotropic_resample(v, mm)[0] for v in b])
+
+    def bits_equal(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b))
+                    and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+    gen = torch.Generator(device=vol.device).manual_seed(25)
+    batch = 100.0 * torch.randn((32,) + OASIS_DIMS, generator=gen, device=vol.device)
+    out = torch.empty((32,) + isotropic_shape(OASIS_DIMS, OASIS_MM), device=vol.device)
+    record(
+        "isotropic_resample_batch", "sift3d_torch/csrc/isotropic_resample.cu", "sift3d/kernels/resample.py:166",
+        lambda: resample_cuda.isotropic_resample_batch(batch, out, OASIS_MM),
+        lambda: chain(batch, OASIS_MM),
+        0.0, f"-w sub-batch {tuple(batch.shape)} at {OASIS_MM} mm -> {tuple(out.shape)} (exact)",
+        4 * (batch.numel() + out.numel()), 28 * out.numel(), plain_reps=3,
+    )
+    bits = {"oasis": bits_equal(resample_cuda.isotropic_resample_batch(batch, out, OASIS_MM),
+                                chain(batch, OASIS_MM))}
+    del batch, out
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(25)
+    edges = [((1, 5, 7, 9), (1.0, 1.0, 1.25)), ((2, 6, 8, 10), (1.2, 0.9375, 1.0)),
+             ((1, 1, 7, 9), (1.0, 1.0, 1.5)), ((1, 5, 1, 9), (1.0, 3.0, 1.0)), ((1, 5, 7, 1), (3.0, 1.0, 1.0)),
+             ((1, 1, 1, 1), (1.0, 1.0, 1.25)), ((3, 37, 75, 61), (0.9375, 0.9375, 1.2)),
+             ((2, 91, 109, 91), (1.5, 1.0, 1.0))]
+    for shape, mm in edges:
+        x = (100 * rng.standard_normal(shape)).astype(np.float32)
+        x.flat[rng.choice(x.size, min(x.size, 10), replace=False)] = [np.nan, np.inf, -np.inf, -0.0, 0.0] * 2
+        x = torch.from_numpy(x).to(vol.device)
+        got = torch.full((shape[0],) + isotropic_shape(shape[1:], mm), float("nan"), device=vol.device)
+        resample_cuda.isotropic_resample_batch(x, got, mm)
+        bits[f"{shape} {mm}"] = bits_equal(got, chain(x, mm)) and bits_equal(got.cpu(), chain(x.cpu(), mm))
+    print(f"phase2 isotropic_resample_batch: bit-equal to the plain chain (on the card and, at the edge "
+          f"shapes, on the CPU) {json.dumps(bits)}")
+    if not all(bits.values()):
+        raise AssertionError(f"K11 differs from the plain isotropic_resample chain: {bits}")
 
     # K7 at the blur shapes of the paths: against cuBLAS (the plain version
     # on the card, another summation order) within 1e-6 of the peak, and
@@ -1258,6 +1309,7 @@ ENTRIES = {
     "canonical": ("sift3d_canonical",), "rotated_goh": ("sift3d_rotated_goh",), "goh": ("sift3d_goh",),
     "rotated_brief": ("sift3d_rotated_brief",), "brief": ("sift3d_brief",),
     "sample_rotated": ("sift3d_sample_rotated",), "double_size_batch": ("sift3d_double_size",),
+    "isotropic_resample_batch": ("sift3d_isotropic_resample",),
     "hist_topk": ("sift3d_hist_topk",), "splat_histogram_raw": ("sift3d_splat_histogram_raw",),
     "smooth_histogram_peaks": ("sift3d_smooth_histogram_peaks",),
     "knn_prep_i8": ("sift3d_knn_prep_i8",), "knn_topk_int8": ("sift3d_knn_topk_i8", "sift3d_knn_merge"),
@@ -1310,9 +1362,10 @@ BRIEF_FLAGS = {"-b": "brief", "-br": "rrief", "-bn": "nrrief"}
 def cli_full_width(vol_np, labels, tmp: str):
     """Phase 7: the CLI on the card with the flags at full width. labels
     names the main path's kernels, the fused BRIEF kernels, K10
-    (double_size_batch) and K4's patch mode (sample_rotated, on no path):
-    the GoH flags must launch all but the BRIEF kernels, -b, -br and -bn
-    all but the GoH ones, -2+ alone K10, none K4's patch mode. Then the
+    (double_size_batch), K11 (isotropic_resample_batch) and K4's patch
+    mode (sample_rotated, on no path): the GoH flags must launch all but
+    the BRIEF kernels, -b, -br and -bn all but the GoH ones, -2+ alone K10,
+    -w and -ws alone K11 (once a call), none K4's patch mode. Then the
     descriptors stage of extract_features with each BRIEF variant under
     torch.profiler: its launch calls and device ms. Returns the .key rows
     and the launches of each flag."""
@@ -1342,7 +1395,9 @@ def cli_full_width(vol_np, labels, tmp: str):
         )
         idle = (GOH_ONLY if flag in BRIEF_FLAGS else BRIEF_ONLY) + ("sample_rotated",)
         idle += () if flag == "-2+" else ("double_size_batch",)
-        if rows == 0 or any((launches[k] > 0) == (k in idle) for k in launches):
+        idle += () if flag in ("-w", "-ws") else ("isotropic_resample_batch",)
+        if (rows == 0 or any((launches[k] > 0) == (k in idle) for k in launches)
+                or launches["isotropic_resample_batch"] > 1):
             raise AssertionError(f"the CLI with {flag} did not run its kernels: {launches}, {rows} rows")
         rows_of[flag], launches_of[flag] = rows, launches
     import torch
@@ -2600,7 +2655,7 @@ def main() -> int:
     redesigned = nvcc_report(("blur", "hist_topk", "canonical_", "splat_histogram_raw",
                               "smooth_histogram_peaks", "dogs_extrema", "extrema_mask", "identity_eig",
                               "goh_kernel", "brief_kernel",
-                              "knn_", "ratio_", "hough_kernel", "double_size"))
+                              "knn_", "ratio_", "hough_kernel", "double_size", "isotropic_resample"))
     print(f"phase1 nvcc.log, [registers, shared B, spill store B, spill load B] of K7, K3, K8, K9, "
           f"the fused canonical stage (canonical_primary_kernel, canonical_secondary_kernel), "
           f"K1, K6, the fused K2 (identity_eig_kernel), the fused K4 (goh_kernel<1> sampling, "
@@ -2608,7 +2663,8 @@ def main() -> int:
           f"radius), M1 (its int8 route: knn_prep_kernel<C>, knn_topk_i8_kernel<C, KM>, "
           f"knn_merge_kernel<KM>; its f32 route: knn_topk_kernel<C, KM>), M2 (its int8 route: "
           f"ratio_i8_kernel<1> with the geometry in shared memory, <0> without; its f32 route: "
-          f"ratio_match_kernel), M3 (hough_kernel, both modes) and K10 (double_size_kernel): "
+          f"ratio_match_kernel), M3 (hough_kernel, both modes), K10 (double_size_kernel) and K11 "
+          f"(isotropic_resample_kernel): "
           f"{json.dumps(redesigned)}")
     for kernel, what in (("knn_topk_i8_kernel", "M1's int8 kernels"), ("ratio_i8_kernel", "M2's int8 kernels")):
         imma = sass_count(kernel, "IMMA")
@@ -2770,11 +2826,13 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         rows_of, launches_of = cli_full_width(
-            vol_np, EXTRACTION + ("rotated_brief", "brief", "double_size_batch", "sample_rotated"), tmp)
+            vol_np, EXTRACTION + ("rotated_brief", "brief", "double_size_batch", "isotropic_resample_batch",
+                                  "sample_rotated"), tmp)
     # the fused BRIEF kernels run on the BRIEF path only: their launches are
-    # -bn's; K10 runs on -2+ alone
+    # -bn's; K10 runs on -2+ alone, K11 on -w and -ws alone
     launches.update(rotated_brief=launches_of["-bn"]["rotated_brief"], brief=launches_of["-bn"]["brief"],
-                    double_size_batch=launches_of["-2+"]["double_size_batch"])
+                    double_size_batch=launches_of["-2+"]["double_size_batch"],
+                    isotropic_resample_batch=launches_of["-w"]["isotropic_resample_batch"])
     with tempfile.TemporaryDirectory() as tmp:
         cli_card_vs_cpu(EXTRACTION, tmp)
     launches["extrema_mask"] = spatial_runs(vol, cfg, rows_of["-2+"])["extrema_mask"]

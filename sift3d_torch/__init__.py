@@ -20,8 +20,10 @@ It never imports ``jax`` or ``sift3d``. The extraction entry points are
 exported here: ``extract_features`` (one volume),
 ``extract_features_many`` (a list of volumes, same-shape ones batched)
 and ``extract_features_batch`` (a list of volumes placed over a mesh of
-devices, ``sift3d_torch.dist.batch``).
+devices, ``sift3d_torch.dist.batch``); ``Scan``, a volume with its voxel
+size and world matrix, is their input under ``prescale="isotropic"``
+(featExtract's -w).
 """
 
 from sift3d_torch.dist.batch import extract_features_batch  # noqa: F401
-from sift3d_torch.pipeline.extract import extract_features, extract_features_many  # noqa: F401
+from sift3d_torch.pipeline.extract import Scan, extract_features, extract_features_many  # noqa: F401

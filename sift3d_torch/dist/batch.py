@@ -95,7 +95,8 @@ def extract_features_batch(
     volumes are dealt round-robin over the first min(len(mesh), len(vols))
     entries; each entry runs ``extract_features_many`` on its group in a
     host thread of its own. An entry's error is raised here. descriptor
-    and prescale as in ``extract_features``."""
+    and prescale as in ``extract_features`` (under "isotropic" the volumes
+    are Scans and the features come back in world millimetres)."""
     mesh = make_mesh(devices=mesh)
     if not len(vols):
         return []

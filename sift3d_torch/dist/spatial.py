@@ -191,11 +191,14 @@ def extract_features_spatial(
     The first `sharded_octaves` octaves of the extraction grid run sharded
     (None: those whose working set exceeds 2 GiB); the rest run on
     mesh[0]. With no sharded octave or a one-device mesh this is
-    ``extract_features`` on mesh[0]. prescale, descriptor, timer and
-    on_gstack as there (on_gstack gets each sharded octave's stack
-    gathered on mesh[0]). Returns what ``extract_features`` returns for the
+    ``extract_features`` on mesh[0]. prescale (but "isotropic", which
+    raises), descriptor, timer and on_gstack as there (on_gstack gets each
+    sharded octave's stack gathered on mesh[0]). Returns what ``extract_features`` returns for the
     whole volume, in the input volume's voxels.
     """
+    if prescale == "isotropic":
+        raise ValueError("the Z-sharded path takes no prescale 'isotropic': resample the Scan first "
+                         "(pipeline.extract.prescaled_volume) and map its features with in_world_mm")
     mesh = make_mesh() if mesh is None else [torch.device(d) for d in mesh]
     mesh = [resolve_device(d) for d in mesh]
     timer = timer or TRACER

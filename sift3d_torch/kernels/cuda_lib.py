@@ -74,6 +74,9 @@ SIGNATURES = {
     "sift3d_blur3d": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     # in [B,Z,Y,X] f32, out [B,OZ,OY,OX] f32 (resample_cuda.doubled_shape), B, Z, Y, X
     "sift3d_double_size": (_P, _P, _I, _I, _I, _I),
+    # in [B,Z,Y,X] f32, out [B,OZ,OY,OX] f32, B, Z, Y, X, OZ, OY, OX, and each axis's dmin / d
+    # as f32: fz, fy, fx (resample_cuda.isotropic_resample_batch)
+    "sift3d_isotropic_resample": (_P, _P) + (_I,) * 7 + (_F, _F, _F),
     # gstack [B,L,Z,Y,X], dogs [B,ND,ZD,Y,X], lvl [R] i64, zyx [R,3] i64, vi [R] i64 (volume
     # index; null: B = 1), sigmas [ND] f32 in host memory; out xyz [R,3], scale [R], pn [R,1331],
     # eigs [R,3], ori [R,3,3], in_bounds [R] and eig_keep [R] bool; eig_threshold, R, B, L, Z, ND,

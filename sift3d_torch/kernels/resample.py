@@ -17,8 +17,10 @@ Reference equivalents:
 
 The JAX package runs double_size and isotropic_resample eagerly (one XLA
 op at a time, nothing fused), so these plain f32 PyTorch ops in the same
-order give the same bits on the CPU and on the card. They have no
-hand-written kernel: the JAX package has no Pallas kernel for them.
+order give the same bits on the CPU and on the card; the JAX package has
+no Pallas kernel for them. On a batch, each has a hand-written kernel
+that equals it bit for bit (``resample_cuda``): ``double_size_batch`` and
+``isotropic_resample_batch``.
 """
 
 from __future__ import annotations
@@ -113,19 +115,26 @@ def trilinear_sample(vol: torch.Tensor, x, y, z) -> torch.Tensor:
     return wz * nn0 + (1.0 - wz) * nn1
 
 
+def isotropic_shape(shape_zyx, voxel_size) -> tuple:
+    """The [Z, Y, X] of a [Z, Y, X] volume of voxel size (dx, dy, dz)
+    resampled to the isotropic grid of its smallest voxel size: n_i * d_i
+    / min(d), truncated (featExtract.cpp:118-204)."""
+    dx, dy, dz = [float(v) for v in voxel_size]
+    dmin = min(dx, dy, dz)
+    zd, yd, xd = (int(n) for n in shape_zyx)
+    return int(zd * dz / dmin), int(yd * dy / dmin), int(xd * dx / dmin)
+
+
 def isotropic_resample(vol: torch.Tensor, voxel_size, out_dims=None):
     """Resample an anisotropic [Z, Y, X] volume to the isotropic grid of
     its smallest voxel size (the `-w` path, ``sift3d.kernels.resample.
-    isotropic_resample``): out dims n_i * d_i / min(d), samples at
+    isotropic_resample``): out dims n_i * d_i / min(d)
+    (:func:`isotropic_shape`; out_dims: (x, y, z) to override), samples at
     i * (min / d_i) + 0.5, computed in f32 as there. Returns (volume,
     min voxel size)."""
     dx, dy, dz = [float(v) for v in voxel_size]
     dmin = min(dx, dy, dz)
-    zd, yd, xd = vol.shape
-    if out_dims is None:
-        ox, oy, oz = int(xd * dx / dmin), int(yd * dy / dmin), int(zd * dz / dmin)
-    else:
-        ox, oy, oz = out_dims
+    ox, oy, oz = out_dims if out_dims is not None else isotropic_shape(vol.shape, voxel_size)[::-1]
 
     def centres(n, factor):
         # the factor as an f32 tensor: the JAX package rounds the Python
